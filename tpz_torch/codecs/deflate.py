@@ -1,0 +1,90 @@
+"""Raw DEFLATE codec (RFC 1951) on a torch device: level profiles and the
+encode entry points (port of tpz/codecs/deflate.py, encode side).
+
+There is no "auto" and no silent fallback: `device` names where the
+encode runs, and a CUDA device without a card raises.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from tpz_torch import oracle
+from tpz_torch.kernels import deflate_pipeline
+
+
+@dataclass(frozen=True)
+class DeflateConfig:
+    """Level profiles (parse spec v3, cpp/lzss.h): suffix-space candidates
+    with top-2 saturated extension. A copy of tpz.codecs.deflate's, which
+    cannot be imported without jax."""
+
+    level: int = 6
+    window: int = 32768
+    block_size: int = 65536
+
+    @property
+    def max_chain(self) -> int:
+        """Suffix neighbors scanned per direction (R)."""
+        return 4 if self.level <= 3 else (8 if self.level <= 6 else 32)
+
+    @property
+    def lazy(self) -> bool:
+        return self.level >= 4
+
+    @property
+    def screen_bytes(self) -> int:
+        return 32 if self.level >= 7 else 16
+
+    @property
+    def max_lazy(self) -> int:
+        return 258
+
+    @property
+    def n_extend(self) -> int:
+        """Saturated candidates extended per token."""
+        return 2
+
+    @property
+    def suffix_mode(self) -> bool:
+        return True
+
+    @property
+    def restart(self) -> int:
+        """Parse-restart interval (cpp/lzss.h LzssParams.restart): the
+        sub-walk length that makes block_size / restart independent parse
+        walks per block."""
+        return 16384
+
+    def params_array(self):
+        return oracle.params_array(
+            window=self.window,
+            max_chain=self.max_chain,
+            block_size=self.block_size,
+            lazy=self.lazy,
+            max_lazy=self.max_lazy,
+            n_extend=self.n_extend,
+            screen_bytes=self.screen_bytes,
+            suffix_mode=self.suffix_mode,
+            restart=self.restart,
+        )
+
+
+def compress(data: bytes, level: int = 6, *, device,
+             config: DeflateConfig | None = None) -> bytes:
+    cfg = config or DeflateConfig(level=level)
+    return deflate_pipeline.compress(data, cfg, device)
+
+
+def compress_indexed(data: bytes, level: int = 6, *, device,
+                     config: DeflateConfig | None = None):
+    """Encode + block index: (stream, block_end_bits, block_out_lens)."""
+    cfg = config or DeflateConfig(level=level)
+    return deflate_pipeline.compress_indexed(data, cfg, device)
+
+
+def compress_many(datas, level: int = 6, *, device,
+                  config: DeflateConfig | None = None) -> list[bytes]:
+    """Batch encode: one device invocation for many independent streams."""
+    cfg = config or DeflateConfig(level=level)
+    return deflate_pipeline.compress_many(list(datas), cfg, device)

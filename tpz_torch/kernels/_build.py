@@ -1,0 +1,61 @@
+"""Builds and loads the port's CUDA kernels.
+
+`nvcc` compiles every `tpz_torch/csrc/*.cu` for sm_90a into one shared
+library with a plain C interface, `build/kernels/libtpz_torch_kernels.so`,
+loaded with ctypes. It builds at first use and again whenever the sources
+change. Nothing here runs at import of the package: only a kernel wrapper
+handed a CUDA tensor calls `lib()`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import subprocess
+
+from tpz_torch._shared import REPO_ROOT
+from tpz_torch.utils.build import cached_build, inputs_key
+
+CSRC = os.path.join(REPO_ROOT, "tpz_torch", "csrc")
+BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
+LIB_NAME = "libtpz_torch_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def build(out_dir: str = BUILD_DIR) -> str:
+    """Compile the kernels unless the library is current; returns its
+    path. What nvcc and ptxas printed (registers, spills) goes to
+    build.log beside it."""
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+    def compile_to(out_path):
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", out_path, *sources],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"nvcc failed:\n{r.stdout}{r.stderr}")
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write(r.stdout + r.stderr)
+
+    return cached_build(out_dir, LIB_NAME,
+                        inputs_key(sources, *NVCC_FLAGS), compile_to)
+
+
+def lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        L = ctypes.CDLL(build())
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        L.tpz_parse_walk_v3.restype = ci
+        L.tpz_parse_walk_v3.argtypes = [vp] * 5 + [ci] * 11 + [vp]
+        _LIB = L
+    return _LIB

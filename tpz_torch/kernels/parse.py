@@ -1,0 +1,314 @@
+"""Spec-v3 parse walk: greedy/lazy LZSS parse with match extension (port
+of tpz/kernels/parse.py `_v3_marks`, `parse_extend_v3z`, and of the walk
+that `parse_extend_pallas_v3y` runs on the TPU).
+
+Every `restart`-sized sub-range of a block is parsed by an independent
+state machine (a "sub-walk"). An unsaturated token's outcome is a pure
+function of its screen word, precomputed by `_v3_marks`; saturated
+positions take the extension machinery (4-byte compares against the
+candidate, then optionally the second candidate).
+
+- `parse_extend_v3z` is the plain torch version: all sub-walks advance
+  together, one micro-step per trip of a Python loop.
+- `parse_extend_v3` is the wrapper the pipeline calls: a CPU tensor runs
+  the plain version, a CUDA tensor launches the hand-written kernel in
+  `tpz_torch/csrc/parse_walk.cu`.
+
+`n_extend` is the oracle's parameter of the same name (cpp/lzss.h): with
+2, a saturated second candidate is extended when the first falls short of
+the cap. The reference walks never load that candidate, so they equal the
+oracle run with n_extend=1; the port takes both values so it can be held
+exactly against either.
+
+Outputs (visited, mlen, mdist) are [NB, N] int32: visited = mlen + 1 at
+every position where a token starts, 0 elsewhere.
+"""
+
+from __future__ import annotations
+
+import torch
+
+RAW = 1 << 30
+SENT = 1 << 20
+SMASK = (1 << 20) - 1
+
+
+def _v3_marks(pk1, pk2, cap_at, block_len, window, max_match,
+              screen_bytes, too_far, lazy, max_lazy):
+    """Ready-to-emit marks [NB, N] int32: (dist << 10) | (len + 1) for a
+    match, (raw len << 10) | 1 for a literal or lazily demoted match.
+    Saturated positions, and lazy probes over a saturated neighbour,
+    carry the raw screen word plus the RAW flag bit instead.
+    block_len: [NB] int32."""
+    NB, N = pk1.shape
+    pos = torch.arange(N, device=pk1.device, dtype=torch.int32).expand(NB, N)
+    blen = block_len[:, None]
+    ss1p = (pk1 & 63) - 1
+    jj1p = (pk1 >> 6) - 1
+    scapp = torch.clamp(cap_at, max=screen_bytes)
+    satp = (ss1p >= scapp) & (jj1p >= 0)
+    no1p = (jj1p < 0) | (ss1p < 3)
+    lnp = torch.where(no1p, 0, ss1p)
+    distp = pos + window - jj1p
+    lnp = torch.where((lnp == 3) & (distp > too_far), 0, lnp)
+    distp = torch.where(lnp > 0, distp, 0)
+    if lazy:
+        ln_next = torch.nn.functional.pad(lnp[:, 1:], (0, 1))
+        sat_next = torch.nn.functional.pad(satp[:, 1:], (0, 1))
+        probe_would = (lnp > 0) & (lnp < max_lazy) & (pos + 1 < blen)
+        demote = probe_would & ~sat_next & (ln_next > lnp)
+        flagged = satp | (probe_would & sat_next)
+    else:
+        demote = torch.zeros_like(satp)
+        flagged = satp
+    markp = torch.where(demote | (lnp == 0), (lnp << 10) | 1,
+                        (distp << 10) | (lnp + 1))
+    return torch.where(flagged, pk1 | RAW, markp)
+
+
+def _outputs(out: torch.Tensor):
+    visited = out & 1023
+    mlen = torch.clamp(visited - 1, min=0)
+    mdist = torch.where(mlen > 0, out >> 10, 0)
+    return visited, mlen, mdist
+
+
+def _lzbytes(x):
+    """Equal low-order bytes of a nonzero xor (0..3)."""
+    return (((x & 0xFF) == 0).to(torch.int32)
+            + ((x & 0xFFFF) == 0).to(torch.int32)
+            + ((x & 0xFFFFFF) == 0).to(torch.int32))
+
+
+def _parse_extend_v3z_core(pk1, pk2, cap_at, words, block_len, window,
+                           max_match, screen_bytes, too_far, lazy, max_lazy,
+                           restart, n_extend):
+    """Lane-parallel walk over all NB * (N / restart) sub-walks at once:
+    one trip of the loop advances every live sub-walk by one micro-step
+    (one 8-byte compare in EXT). A run of literals is painted in one trip
+    from jump lengths baked into the literal marks' spare bits 19..29."""
+    NB, N = pk1.shape
+    M = words.shape[1]
+    dev = pk1.device
+    if not restart or restart >= N:
+        restart = N
+    assert N % restart == 0
+    nsub = N // restart
+    NW = NB * nsub
+
+    w1 = _v3_marks(pk1, pk2, cap_at, block_len, window, max_match,
+                   screen_bytes, too_far, lazy, max_lazy)
+    pos = torch.arange(N, device=dev, dtype=torch.int32).expand(NB, N)
+    interesting = ((w1 & RAW) != 0) | ((w1 & 1023) >= 2)
+    nxt = torch.where(interesting, pos, 1 << 28)
+    nxt = torch.flip(torch.cummin(torch.flip(nxt, [1]), dim=1).values, [1])
+    jump = torch.clamp(nxt - pos, 1, 2047)
+    w1 = torch.where(interesting, w1, w1 | (jump << 19))
+    # One flat buffer per block, [marks/pk2 interleaved (2N) | words (M)],
+    # so each trip's four reads are one gather.
+    mp = torch.stack([w1, pk2], dim=2).reshape(NB, 2 * N)
+    comb = torch.cat([mp, words], dim=1).reshape(-1)
+    R = 2 * N + M
+    WOFF = 2 * N
+
+    wid = torch.arange(NW, device=dev, dtype=torch.int32)
+    blk_w = wid // nsub
+    sub_w = wid % nsub
+    base_w = blk_w.to(torch.int64) * R
+    blen_w = block_len[blk_w]
+    pend_w = torch.minimum((sub_w + 1) * restart, blen_w)
+    zero = torch.zeros(NW, device=dev, dtype=torch.int32)
+    p = sub_w * restart
+    st = tgt = cand = k = j = scap = nz = res1 = jres1 = ln0 = dist0 = zero
+    cap = zero + 1
+    s2v = j2v = zero - 1
+    # Marks are STORED (each position is emitted at most once); literal
+    # runs add +1/-1 interval deltas. Junk lanes land on a spare slot.
+    out = torch.zeros(NB * (N + 1), device=dev, dtype=torch.int32)
+    delta = torch.zeros(NB * (N + 2), device=dev, dtype=torch.int32)
+    out_row = blk_w.to(torch.int64) * (N + 1)
+    d_row = blk_w.to(torch.int64) * (N + 2)
+
+    while True:
+        act = p < pend_w
+        if not bool(act.any()):
+            break
+        is_ext = act & (st == 1)
+        is_tok = act & (st == 0)
+
+        q = p + tgt
+        qc = torch.clamp(q, max=N - 1)
+        ea = torch.clamp(q + window + k, max=M - 1)
+        eb = torch.clamp(j + k, 0, M - 1)
+        ea2 = torch.clamp(ea + 4, max=M - 1)
+        eb2 = torch.clamp(eb + 4, max=M - 1)
+        offs = torch.cat([
+            torch.where(is_ext, WOFF + ea, 2 * qc),
+            torch.where(is_ext, WOFF + eb, 2 * qc + 1),
+            torch.where(is_ext, WOFF + ea2, 2 * qc),
+            torch.where(is_ext, WOFF + eb2, 2 * qc + 1)]).to(torch.int64)
+        g4 = comb[offs + base_w.repeat(4)]
+        a, b, a2, b2 = g4[:NW], g4[NW:2 * NW], g4[2 * NW:3 * NW], g4[3 * NW:]
+
+        rawq = (a & RAW) != 0
+        apk = a & (RAW - 1)
+        fast0 = is_tok & ~rawq & (tgt == 0)
+        fast1 = is_tok & ~rawq & (tgt == 1)
+        aln = apk & 1023
+        amark_ln = torch.where(aln == 1, (apk >> 10) & 511, aln - 1)
+        lit0 = fast0 & (aln == 1)
+        q_to = torch.minimum(p + torch.clamp((apk >> 19) & 2047, min=1),
+                             pend_w)
+
+        # ---- TOK (raw): unpack screen candidates at q ----
+        ss1 = (apk & 63) - 1
+        jj1 = (apk >> 6) - 1
+        cap_t = torch.clamp(blen_w - q, max=max_match)
+        cap_t = torch.minimum(cap_t, restart - (q % restart))
+        scap_t = torch.clamp(cap_t, max=screen_bytes)
+        no1 = (jj1 < 0) | (ss1 < 3)
+        sat1 = (ss1 >= scap_t) & (jj1 >= 0)
+        go_ext = is_tok & rawq & sat1
+        fin_tok = is_tok & rawq & ~sat1
+
+        # ---- EXT: one 8-byte compare step (two 4-byte words) ----
+        x = a ^ b
+        x2 = a2 ^ b2
+        full8 = (x == 0) & (x2 == 0)
+        adv = torch.where(x != 0, _lzbytes(x),
+                          4 + torch.where(x2 == 0, 4, _lzbytes(x2)))
+        k2 = torch.minimum(k + adv, cap)
+        kn = torch.where(full8, k2, k2 + SENT)
+        edone = is_ext & (kn >= cap)
+        lnc = torch.minimum(kn & SMASK, cap)
+        need2 = (j2v >= 0) & (s2v >= scap) & (lnc < cap)
+        b_to2 = edone & (cand == 1) & need2
+        b_fin1 = edone & (cand == 1) & ~need2
+        b_fin2 = edone & (cand == 2)
+        use2 = lnc > res1
+
+        # ---- FIN: rules, lazy, emit ----
+        fin_now = fin_tok | b_fin1 | b_fin2 | fast1
+        lnf = torch.where(fin_tok, ss1,
+                          torch.where(b_fin2, torch.maximum(lnc, res1), lnc))
+        jf = torch.where(fin_tok, jj1,
+                         torch.where(b_fin2 & ~use2, jres1, j))
+        nzv = torch.where(fin_tok, no1, nz != 0)
+        lnf = torch.where(nzv, 0, lnf)
+        distf = q + window - jf
+        lnf = torch.where((lnf == 3) & (distf > too_far), 0, lnf)
+        distf = torch.where(lnf > 0, distf, 0)
+        lnf = torch.where(fast1, amark_ln, lnf)
+
+        if lazy:
+            golazy = (fin_now & (tgt == 0) & (lnf > 0) & (lnf < max_lazy)
+                      & (p + 1 < blen_w))
+        else:
+            golazy = torch.zeros_like(fin_now)
+        do_emit = (fin_now & ~golazy) | fast0
+        demote = lnf > ln0
+        lnE = torch.where(tgt == 0, lnf, torch.where(demote, 0, ln0))
+        dE = torch.where(tgt == 0, distf, torch.where(demote, 0, dist0))
+        mark = torch.where(fast0, apk, (dE << 10) | (lnE + 1))
+        adv_p = torch.where(lit0, q_to - p,
+                            torch.where(fast0, torch.clamp(aln - 1, min=1),
+                                        torch.clamp(lnE, min=1)))
+
+        # ---- next state ----
+        if n_extend >= 2:
+            s2v = torch.where(go_ext, (b & 63) - 1, s2v)
+            j2v = torch.where(go_ext, (b >> 6) - 1, j2v)
+        st = torch.where(go_ext | b_to2, 1, torch.where(fin_now, 0, st))
+        tgt = torch.where(golazy, 1, torch.where(do_emit, 0, tgt))
+        cand = torch.where(go_ext, 1, torch.where(b_to2, 2, cand))
+        k = torch.where(go_ext, ss1, torch.where(
+            b_to2, s2v, torch.where(is_ext & ~edone, kn, k)))
+        res1 = torch.where(b_to2, lnc, res1)
+        jres1 = torch.where(b_to2, j, jres1)
+        j = torch.where(go_ext, jj1, torch.where(b_to2, j2v, j))
+        cap = torch.where(go_ext, cap_t, cap)
+        scap = torch.where(go_ext, scap_t, scap)
+        nz = torch.where(go_ext, no1.to(torch.int32), nz)
+        ln0 = torch.where(golazy, lnf, ln0)
+        dist0 = torch.where(golazy, distf, dist0)
+
+        emit_pt = do_emit & ~lit0
+        out.index_put_((torch.where(emit_pt, out_row + p, out_row + N),),
+                       mark)
+        delta.index_add_(0, torch.cat([
+            torch.where(lit0, d_row + p, d_row + N + 1),
+            torch.where(lit0, d_row + q_to, d_row + N + 1)]),
+            torch.cat([lit0.to(torch.int32), -lit0.to(torch.int32)]))
+        p = torch.where(do_emit, p + adv_p, p)
+
+    out = out.reshape(NB, N + 1)[:, :N]
+    interval = torch.cumsum(delta.reshape(NB, N + 2)[:, :N], dim=1) > 0
+    return _outputs(torch.where(interval, w1, out))
+
+
+def parse_extend_v3z(pk1, pk2, cap_at, words, block_len, window,
+                     max_match=258, screen_bytes=16, too_far=4096,
+                     lazy=False, max_lazy=258, restart=0, n_extend=2,
+                     group=16):
+    """Plain torch version of the parse walk. pk1, pk2, cap_at: [NB, N]
+    int32 block-local screen outputs; words: [NB, M] int32; block_len:
+    [NB] int32. Blocks run in groups of `group` to bound the loop's
+    working set; the result does not depend on it."""
+    NB = pk1.shape[0]
+    parts = [_parse_extend_v3z_core(
+        pk1[g:g + group], pk2[g:g + group], cap_at[g:g + group],
+        words[g:g + group], block_len[g:g + group], window, max_match,
+        screen_bytes, too_far, lazy, max_lazy, restart, n_extend)
+        for g in range(0, NB, group)]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(x, dim=0) for x in zip(*parts))
+
+
+def parse_extend_v3(pk1, pk2, cap_at, words, block_len, window,
+                    max_match=258, screen_bytes=16, too_far=4096,
+                    lazy=False, max_lazy=258, restart=0, n_extend=2,
+                    group=16):
+    """The parse walk: the plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors (`group` applies to the plain version only)."""
+    if pk1.device.type == "cpu":
+        return parse_extend_v3z(pk1, pk2, cap_at, words, block_len, window,
+                                max_match, screen_bytes, too_far, lazy,
+                                max_lazy, restart, n_extend, group)
+    if pk1.device.type != "cuda":
+        raise ValueError(f"parse walk: unsupported device {pk1.device}")
+    NB, N = pk1.shape
+    M = words.shape[1]
+    if not restart or restart >= N:
+        restart = N
+    for name, t, shape in (("pk1", pk1, (NB, N)), ("pk2", pk2, (NB, N)),
+                           ("cap_at", cap_at, (NB, N)),
+                           ("words", words, (NB, M)),
+                           ("block_len", block_len, (NB,))):
+        if (t.device != pk1.device or t.dtype != torch.int32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"parse walk: {name} must be a contiguous int32 CUDA tensor "
+                f"of shape {shape} on {pk1.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if N % restart or M < N + window + max_match:
+        raise ValueError(f"parse walk: bad geometry N={N} M={M} "
+                         f"restart={restart} window={window}")
+    w1 = _v3_marks(pk1, pk2, cap_at, block_len, window, max_match,
+                   screen_bytes, too_far, lazy, max_lazy)
+    out = torch.zeros((NB, N), dtype=torch.int32, device=pk1.device)
+    from tpz_torch.kernels import _build
+
+    with torch.cuda.device(pk1.device):
+        rc = _build.lib().tpz_parse_walk_v3(
+            w1.data_ptr(), pk2.data_ptr(), words.data_ptr(),
+            block_len.data_ptr(), out.data_ptr(), NB, N, M, window,
+            restart, max_match, screen_bytes, too_far, int(lazy), max_lazy,
+            n_extend, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"parse walk kernel launch failed: cudaError {rc}")
+    parse_extend_v3.launches += 1
+    return _outputs(out)
+
+
+parse_extend_v3.launches = 0
