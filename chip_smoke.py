@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the tpz_torch gzip encode path on one NVIDIA GPU.
+"""Smoke run of the tpz_torch gzip encode and decode paths on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,31 @@ Phases (each prints one line; any failure raises and exits non-zero):
               gzip.decompress round-trips, the kernel launched
   5. timing   warm median of 3 iterations on fresh seeds (MB/s), and a
               per-stage split from CUDA events
-The second-to-last line is a JSON record of the kernels; the last line is
+  6. decode-kernels
+              the symbol-walk kernel against its plain torch version
+              (exact markers) and the copy-machine kernel against the
+              plain doubling resolve (exact bytes): 1 MiB of
+              corpus.mixed and of corpus.repetitive on the TZ-indexed and
+              the segmented route; a match-heavy synthetic marker stream
+              (dist 1-4 runs) with dist_bias 0 and 1; then at 16 MiB a
+              TZ-indexed member and the segmented layout of a phase-4
+              gzip body (the headline dispatch's own input), both kernels
+              timed there beside their plain versions (the copy machine's
+              launch alone and through its wrapper)
+  7. decode-slice
+              api.decompress_many on the 2 x 16 MiB gzip blobs of phase 4,
+              api.decompress on a 16 MiB TZ-indexed member, a stdlib gzip
+              and a stdlib zlib stream, device "cuda": every output equals
+              its input; on each of the four paths, with the counts set to
+              0 just before it, both decode kernels launched and nothing
+              declined to the host
+  8. decode-timing
+              warm median of 3 decompress_many calls on the 2 x 16 MiB
+              batch (MB/s of plaintext) and a per-stage split from CUDA
+              events, with the host CRC time
+A JSON record of the kernels (launches from the headline decode batch,
+times at the headline shapes) comes before the card's name and power
+limit; the last line is
 {"ok": true, "device": {...}}. Needs the repository checkout around it.
 """
 
@@ -28,7 +53,9 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
+import numpy as np
 import torch
 
 MIB = 1 << 20
@@ -149,13 +176,10 @@ def compare_parse(inputs, cfg):
     return err, ms, plain_ms
 
 
-def phase_kernel(headline):
-    from tpz_torch._shared import corpus
+def phase_kernel(headline, small):
     from tpz_torch.codecs.deflate import DeflateConfig
     from tpz_torch.kernels import parse
 
-    small = {"mixed": corpus.mixed(MIB, seed=11),
-             "repetitive": corpus.repetitive(MIB, seed=12)}
     for name, data in small.items():
         for level in (1, 6):
             cfg = DeflateConfig(level=level)
@@ -172,7 +196,7 @@ def phase_kernel(headline):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_slice(batch) -> int:
+def phase_slice(batch):
     from tpz_torch import api, oracle
     from tpz_torch.codecs import gzip_codec
     from tpz_torch.codecs.deflate import DeflateConfig
@@ -199,7 +223,7 @@ def phase_slice(batch) -> int:
     log("slice", buffers=len(batch), bytes=sum(len(d) for d in batch),
         ratio=f"{ratio:.4f}", cold_s=f"{dt:.3f}", parse_launches=launches,
         oracle_identical=True)
-    return launches
+    return launches, blobs
 
 
 def phase_timing(batches, smi) -> None:
@@ -244,8 +268,246 @@ def phase_timing(batches, smi) -> None:
     log("timing", **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
 
 
+def indexed_inputs(data):
+    """The device layout of `data` encoded by the port with its TZ block
+    index, built by the decode pipeline's own host stages."""
+    from tpz_torch import oracle
+    from tpz_torch.codecs import deflate
+    from tpz_torch.kernels import inflate_pipeline as ip
+
+    items = [deflate.compress_indexed(data, device="cuda")]
+    scans = {0: oracle.inflate_scan_headers(items[0][0], items[0][1])}
+    return ip._to_device(ip._indexed_layout(items, [0], scans), "cuda")
+
+
+def segmented_inputs(raw):
+    """The device layout of the raw DEFLATE stream `raw` on the segmented
+    route (host segment index, ragged out_lens, split-match carries), as
+    the decode pipeline's own host stages build it."""
+    from tpz_torch import oracle
+    from tpz_torch.kernels import inflate_pipeline as ip
+
+    idx = ip.index_stream(raw)
+    scans = {0: oracle.inflate_scan_segments(
+        raw, idx["hdr_bits"], idx["seg_bits"], idx["end_bits"])}
+    return ip._to_device(ip._segmented_layout([(raw, idx)], [0], scans),
+                         "cuda")
+
+
+def dense_markers(t, markers):
+    """The resolve's input: the walk's markers materialized and (on the
+    segmented route) placed into dense output space."""
+    from tpz_torch.kernels import inflate_pipeline as ip
+
+    segmented = "dense_off" in t
+    m = ip._materialize_fn(markers, *ip._materialize_args(t),
+                           carry=t["carry"] if segmented else None)
+    return ip._place_dense(m, t) if segmented else m.reshape(-1)
+
+
+def compare_walk(t):
+    """Symbol-walk kernel vs plain on the same CUDA tensors: (markers,
+    max abs difference, kernel ms, plain ms), each timed on its first
+    call. Raises unless the markers are equal."""
+    from tpz_torch.kernels import inflate_pipeline as ip
+
+    args = ip._walk_args(t)
+    before = ip.symbol_walk.launches
+    got, ms = timed(lambda: ip.symbol_walk(*args))
+    if ip.symbol_walk.launches != before + 1:
+        raise RuntimeError("symbol walk wrapper did not launch its kernel")
+    want, plain_ms = timed(lambda: ip.symbol_walk_plain(*args))
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err:
+        raise RuntimeError(f"symbol-walk kernel disagrees with plain: {err}")
+    return got, err, ms, plain_ms
+
+
+def compare_resolve(dense, dist_bias=0):
+    """Copy machine (resolve_dense on a CUDA tensor) vs the plain doubling
+    resolve over the whole span: max abs byte difference, which must be
+    0."""
+    from tpz_torch.kernels import resolve_walk as rw
+
+    before = rw.resolve_copy_machine.launches
+    got = rw.resolve_dense(dense, dist_bias)
+    if rw.resolve_copy_machine.launches == before:
+        raise RuntimeError("copy-machine wrapper did not launch its kernel")
+    want = rw.resolve_doubling_state(dense, dist_bias) & 0xFF
+    err = int((got.to(torch.int64) - want).abs().max())
+    if err:
+        raise RuntimeError(f"copy-machine kernel disagrees with plain: {err}")
+    return err
+
+
+def synthetic_markers(n, dist_bias, seed):
+    """A match-heavy marker stream: a literal, then a 258-byte match, over
+    and over; 70% of the matches are dist 1-4 runs (self-overlap), the
+    rest reach back up to 32 KiB (across phase-1 segments)."""
+    rng = np.random.default_rng(seed)
+    g = n // 259
+    m = np.full(n, 1 << 28, np.int64)
+    lit = np.arange(g) * 259
+    m[lit] = (1 << 28) | rng.integers(0, 256, g)
+    pos = lit + 1
+    far = rng.random(g) < 0.3
+    dist = np.where(far, 1 + (rng.random(g) * np.minimum(pos, 32768)).astype(
+        np.int64), rng.integers(1, 5, g))
+    m[pos] = (2 << 28) | ((dist - dist_bias) << 9) | 258
+    m[(pos[:, None] + np.arange(1, 258)).reshape(-1)] = 0
+    return torch.from_numpy(m.astype(np.int32)).cuda()
+
+
+def phase_decode_kernels(small, big, body):
+    """`big` is 16 MiB of plaintext for the TZ-indexed route; `body` is the
+    raw DEFLATE body of one phase-4 gzip blob, whose segmented layout is
+    what the headline decode dispatch gives both kernels."""
+    from tpz_torch.kernels import inflate_pipeline as ip
+    from tpz_torch.kernels import resolve_walk as rw
+
+    err_w = err_r = 0
+    for name, data in small.items():
+        for route, t in (("indexed", indexed_inputs(data)),
+                         ("segmented", segmented_inputs(
+                             zlib.compress(data, 6)[2:-4]))):
+            markers, e, _, _ = compare_walk(t)
+            err_w = max(err_w, e)
+            err_r = max(err_r, compare_resolve(dense_markers(t, markers)))
+            log("decode-kernels", input=name, route=route,
+                entries=t["out_len"].shape[0], walk_max_abs_err=e,
+                resolve_max_abs_err=err_r)
+    for bias in (0, 1):
+        m = synthetic_markers(rw.PHASE2_CAP + (1 << 20), bias, 7 + bias)
+        err_r = max(err_r, compare_resolve(m, bias))
+        log("decode-kernels", input="synthetic-runs", positions=m.shape[0],
+            dist_bias=bias, resolve_max_abs_err=err_r)
+
+    for name, t in (("16MiB-indexed", indexed_inputs(big)),
+                    ("16MiB-segmented-headline", segmented_inputs(body))):
+        markers, e, cold_ms, walk_plain_ms = compare_walk(t)
+        err_w = max(err_w, e)
+        args = ip._walk_args(t)
+        _, walk_ms = timed(lambda: ip.symbol_walk(*args), 5)
+        dense = dense_markers(t, markers)
+        err_r = max(err_r, compare_resolve(dense))
+        # The copy machine at the shape the main path gives it: the first
+        # PHASE2_CAP chunk of the 16 MiB span. `ms` is its launch alone on
+        # prepared inputs; the wrapper adds the boundary carries and pad.
+        chunk = dense[:rw.PHASE2_CAP].contiguous()
+        prep = rw._prepare(chunk, 0, rw.SEGMENT_ROWS)
+        rw._launch(*prep)
+        _, res_ms = timed(lambda: rw._launch(*prep), 5)
+        _, wrap_ms = timed(lambda: rw.resolve_copy_machine(chunk), 5)
+        rw.resolve_doubling_state(chunk)
+        _, res_plain_ms = timed(lambda: rw.resolve_doubling_state(chunk), 3)
+        _, dense_ms = timed(lambda: rw.resolve_dense(dense), 3)
+        _, dense_plain_ms = timed(lambda: rw.resolve_doubling_state(dense), 3)
+        log("decode-kernels", input=name, entries=args[0].shape[0],
+            positions=dense.shape[0], walk_max_abs_err=e,
+            resolve_max_abs_err=err_r, walk_ms=f"{walk_ms:.3f}",
+            walk_first_call_ms=f"{cold_ms:.3f}",
+            walk_plain_ms=f"{walk_plain_ms:.3f}",
+            resolve_chunk_ms=f"{res_ms:.3f}",
+            resolve_chunk_wrapper_ms=f"{wrap_ms:.3f}",
+            resolve_chunk_plain_ms=f"{res_plain_ms:.3f}",
+            resolve_16MiB_ms=f"{dense_ms:.3f}",
+            resolve_16MiB_plain_ms=f"{dense_plain_ms:.3f}")
+    # The kernels line keeps the headline input's times (the last one).
+    return ({"max_abs_err": err_w, "ms": walk_ms, "plain_ms": walk_plain_ms},
+            {"max_abs_err": err_r, "ms": res_ms, "plain_ms": res_plain_ms})
+
+
+def drive_decode(path, fn, want):
+    """One decode path with both kernels' counts set to 0 just before it
+    and read just after; raises unless it returns `want`, launched both
+    kernels and declined nothing to the host. Returns its counts."""
+    from tpz_torch.kernels import inflate_pipeline as ip
+    from tpz_torch.kernels import resolve_walk as rw
+
+    declines = ip.host_declines
+    ip.symbol_walk.launches = 0
+    rw.resolve_copy_machine.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"walk": ip.symbol_walk.launches,
+                "resolve": rw.resolve_copy_machine.launches}
+    if out != want:
+        raise RuntimeError(f"{path}: decode did not return its input")
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"{path}: decode path skipped a kernel: "
+                           f"{launches}")
+    if ip.host_declines != declines:
+        raise RuntimeError(f"{path}: decode declined to the host inflate")
+    log("decode-slice", path=path, cold_s=f"{dt:.3f}",
+        walk_launches=launches["walk"], resolve_launches=launches["resolve"],
+        host_declines=0, identical=True)
+    return launches
+
+
+def phase_decode_slice(batch, blobs):
+    """The decode main path and the three other entry paths, each with
+    launch counts of its own; returns the headline batch's counts."""
+    from tpz_torch import api
+
+    tz = api.compress(batch[0], "gzip", device="cuda")
+    foreign = {"gzip": gzip.compress(batch[1], 6),
+               "zlib": zlib.compress(batch[1], 6)}
+    launches = drive_decode(
+        "batch-2x16MiB",
+        lambda: api.decompress_many(blobs, "gzip", device="cuda"), batch)
+    drive_decode("tz-member-16MiB",
+                 lambda: api.decompress(tz, "gzip", device="cuda"), batch[0])
+    for fmt, blob in foreign.items():
+        drive_decode(f"stdlib-{fmt}-16MiB",
+                     lambda: api.decompress(blob, fmt, device="cuda"),
+                     batch[1])
+    return launches
+
+
+def phase_decode_timing(batch, blobs, smi) -> None:
+    from tpz_torch import api
+    from tpz_torch.codecs import gzip_codec
+
+    total = sum(len(d) for d in batch)
+    times = []
+    for _ in range(TIMING_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.decompress_many(blobs, "gzip", device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    median = statistics.median(times)
+    log("decode-timing", mb_per_s=f"{total / median / 1e6:.2f}",
+        median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
+        card=f"'{smi}'")
+
+    # Per-stage split: a CUDA event after each stage, summed over buffers.
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+    events[0][1].record()
+
+    def hook(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+    gzip_codec.decompress_many(blobs, device="cuda", stage_hook=hook)
+    torch.cuda.synchronize()
+    split = {}
+    for (_, prev), (name, ev) in zip(events, events[1:]):
+        split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
+    t0 = time.perf_counter()
+    for d in batch:
+        zlib.crc32(d)
+    split["host_crc"] = (time.perf_counter() - t0) * 1e3
+    log("decode-timing", **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
+
+
 def main() -> int:
     import tpz_torch  # noqa: F401 — fails at once outside a checkout
+    from tpz_torch._shared import corpus
+    from tpz_torch.codecs import gzip_codec
 
     smi = phase_device()
     phase_build()
@@ -258,15 +520,27 @@ def main() -> int:
     bufs = make_corpus(specs)
     log("corpus", buffers=len(bufs), seconds=f"{time.perf_counter() - t0:.1f}")
     batches = [bufs[i:i + nb] for i in range(0, len(bufs), nb)]
-    kern = phase_kernel(batches[0])
-    launches = phase_slice(batches[0])
+    small = {"mixed": corpus.mixed(MIB, seed=11),
+             "repetitive": corpus.repetitive(MIB, seed=12)}
+    kern = phase_kernel(batches[0], small)
+    launches, blobs = phase_slice(batches[0])
     phase_timing(batches[1:], smi)
+    hdr_len = len(gzip_codec.header_bytes(LEVEL))
+    walk, resolve = phase_decode_kernels(small, batches[0][0],
+                                         blobs[0][hdr_len:-8])
+    dec = phase_decode_slice(batches[0], blobs)
+    phase_decode_timing(batches[0], blobs, smi)
+    rows = [("parse_walk_v3", "parse_walk.cu", "tpz/kernels/parse.py:464",
+             launches, kern),
+            ("symbol_walk", "symbol_walk.cu",
+             "tpz/kernels/inflate_pipeline.py:55", dec["walk"], walk),
+            ("resolve_copy_machine", "resolve_walk.cu",
+             "tpz/kernels/resolve_walk.py:91", dec["resolve"], resolve)]
     print(json.dumps({"kernels": [{
-        "name": "parse_walk_v3", "route": "cuda",
-        "source": "tpz_torch/csrc/parse_walk.cu",
-        "replaces": "tpz/kernels/parse.py:464",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"]}]}), flush=True)
+        "name": name, "route": "cuda", "source": f"tpz_torch/csrc/{src}",
+        "replaces": where, "launches": n, "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"], "plain_ms": k["plain_ms"]}
+        for name, src, where, n, k in rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,12 @@
-"""Raw DEFLATE codec (RFC 1951) on a torch device: level profiles and the
-encode entry points (port of tpz/codecs/deflate.py, encode side).
+"""Raw DEFLATE codec (RFC 1951) on a torch device: level profiles, the
+encode entry points and the decode entry points (port of
+tpz/codecs/deflate.py).
 
-There is no "auto" and no silent fallback: `device` names where the
-encode runs, and a CUDA device without a card raises.
+There is no "auto" and no silent fallback: `device` names where the work
+runs, and a CUDA device without a card raises. Decode takes the segmented
+route (kernels/inflate_pipeline.py), which needs no side-car; a stream
+the segment indexer declines goes to the host inflate and is counted in
+inflate_pipeline.host_declines.
 """
 
 from __future__ import annotations
@@ -10,7 +14,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from tpz_torch import oracle
-from tpz_torch.kernels import deflate_pipeline
+from tpz_torch._shared import errors
+from tpz_torch.kernels import deflate_pipeline, inflate_pipeline
+from tpz_torch.kernels.deflate_pipeline import _nohook
 
 
 @dataclass(frozen=True)
@@ -88,3 +94,24 @@ def compress_many(datas, level: int = 6, *, device,
     """Batch encode: one device invocation for many independent streams."""
     cfg = config or DeflateConfig(level=level)
     return deflate_pipeline.compress_many(list(datas), cfg, device)
+
+
+def decompress(data: bytes, *, device) -> bytes:
+    plain, consumed = decompress_prefix(data, device=device)
+    if consumed != len(data):
+        raise errors.DataError(f"trailing garbage after deflate stream "
+                               f"({len(data) - consumed} bytes)")
+    return plain
+
+
+def decompress_prefix(data: bytes, *, device,
+                      stage_hook=_nohook) -> tuple[bytes, int]:
+    """Decode a raw DEFLATE stream that may be followed by more data (a
+    container trailer). Returns (plaintext, consumed bytes)."""
+    device = deflate_pipeline._device(device)
+    idx = inflate_pipeline.index_stream(data)
+    if idx is None:
+        return inflate_pipeline._host_inflate(data)
+    return (inflate_pipeline.decompress_segmented(data, idx, device,
+                                                  stage_hook=stage_hook),
+            idx["consumed"])

@@ -1,6 +1,7 @@
 """Builds and loads the port's CUDA kernels.
 
-`nvcc` compiles every `tpz_torch/csrc/*.cu` for sm_90a into one shared
+`nvcc` compiles every `tpz_torch/csrc/*.cu` for sm_90a, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, `build/kernels/libtpz_torch_kernels.so`,
 loaded with ctypes. It builds at first use and again whenever the sources
 change. Nothing here runs at import of the package: only a kernel wrapper
@@ -21,7 +22,7 @@ CSRC = os.path.join(REPO_ROOT, "tpz_torch", "csrc")
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
 LIB_NAME = "libtpz_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB = None
 
@@ -39,12 +40,26 @@ def build(out_dir: str = BUILD_DIR) -> str:
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
     def compile_to(out_path):
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", out_path, *sources],
+        objs = [os.path.join(out_dir, os.path.basename(s) + ".o")
+                for s in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources, objs)]
+        log = []
+        for s, p in zip(sources, procs):
+            out, _ = p.communicate()
+            log.append(f"== {os.path.basename(s)}\n{out}")
+            if p.returncode:
+                for q in procs:
+                    q.wait()
+                raise RuntimeError(f"nvcc failed on {s}:\n{out}")
+        r = subprocess.run([_nvcc(), "-shared", "-o", out_path, *objs],
                            capture_output=True, text=True)
         if r.returncode:
-            raise RuntimeError(f"nvcc failed:\n{r.stdout}{r.stderr}")
+            raise RuntimeError(f"nvcc link failed:\n{r.stdout}{r.stderr}")
         with open(os.path.join(out_dir, "build.log"), "w") as f:
-            f.write(r.stdout + r.stderr)
+            f.write("".join(log))
 
     return cached_build(out_dir, LIB_NAME,
                         inputs_key(sources, *NVCC_FLAGS), compile_to)
@@ -57,5 +72,9 @@ def lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         L.tpz_parse_walk_v3.restype = ci
         L.tpz_parse_walk_v3.argtypes = [vp] * 5 + [ci] * 11 + [vp]
+        L.tpz_symbol_walk.restype = ci
+        L.tpz_symbol_walk.argtypes = [vp] * 10 + [ci] * 4 + [vp]
+        L.tpz_resolve_walk.restype = ci
+        L.tpz_resolve_walk.argtypes = [vp] * 2 + [ci] * 4 + [vp]
         _LIB = L
     return _LIB

@@ -1,8 +1,12 @@
 """The C++ oracle (`cpp/`), built privately and bound with ctypes.
 
-The port's main path never calls it: it is here for byte-identity checks
-(tests and `chip_smoke.py`). `build()` compiles `cpp/*.cc` with g++ into
-`build/oracle/libtpz_oracle.so` and never writes into `cpp/`, so the
+The encode path never calls it: the encoder is here for byte-identity
+checks (tests and `chip_smoke.py`). The decode path calls its host scans,
+as the reference does: the header scan and the segment indexer, which
+read block headers and cut streams without decoding their symbols, and
+the host inflate for the shapes the device path declines. `build()`
+compiles `cpp/*.cc` with g++ into `build/oracle/libtpz_oracle.so` and
+never writes into `cpp/`, so the
 reference package's own build (`make -C cpp`) stays independent of it.
 """
 
@@ -17,6 +21,7 @@ import sys
 import numpy as np
 
 from tpz_torch._shared import REPO_ROOT, errors
+from tpz_torch._shared import constants as C
 from tpz_torch.utils.build import cached_build, inputs_key
 
 CPP_DIR = os.path.join(REPO_ROOT, "cpp")
@@ -99,6 +104,22 @@ def lib() -> ctypes.CDLL:
         L.tpz_deflate_encode_many.argtypes = [
             u8p, i64p, i64p, ctypes.c_int32, i32p, u8p, i64p, i64p,
             ctypes.c_int32]
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        szp = ctypes.POINTER(ctypes.c_size_t)
+        L.tpz_inflate.restype = ctypes.c_int
+        L.tpz_inflate.argtypes = [u8p, ctypes.c_size_t, u8p, szp, szp]
+        L.tpz_inflate_scan_headers.restype = ctypes.c_int
+        L.tpz_inflate_scan_headers.argtypes = [
+            u8p, ctypes.c_size_t, i64p, ctypes.c_int32, i32p, i64p,
+            i32p, i32p, i32p, i32p, i32p, i32p, u32p, u32p]
+        L.tpz_inflate_scan_segments.restype = ctypes.c_int
+        L.tpz_inflate_scan_segments.argtypes = [
+            u8p, ctypes.c_size_t, i64p, i64p, i64p, ctypes.c_int32, i32p,
+            i64p, i32p, i32p, i32p, i32p, i32p, i32p, u32p, u32p]
+        L.tpz_inflate_index.restype = ctypes.c_int
+        L.tpz_inflate_index.argtypes = [
+            u8p, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, i64p, i64p, i64p, i64p, i32p, i32p, i64p, szp]
         _LIB = L
     return _LIB
 
@@ -179,3 +200,98 @@ def deflate_encode_many(datas, params: np.ndarray | None = None,
     errors.raise_for_status(st, "deflate_encode_many")
     return [out_blob[out_offs[i]:out_offs[i] + out_lens[i]].tobytes()
             for i in range(n)]
+
+
+def _scan_out(nb: int) -> dict:
+    return {"btype": np.zeros(nb, np.int32), "body_bit": np.zeros(nb, np.int64),
+            "c0_pos": np.zeros(nb, np.int32), "c0_len": np.zeros(nb, np.int32),
+            "c1_pos": np.zeros(nb, np.int32), "c1_len": np.zeros(nb, np.int32),
+            "lit_bits": np.zeros(nb, np.int32),
+            "dist_bits": np.zeros(nb, np.int32),
+            "lit_tab": np.zeros((nb, C.INFLATE_LIT_TW), np.uint32),
+            "dist_tab": np.zeros((nb, C.INFLATE_DIST_TW), np.uint32)}
+
+
+def _scan_ptrs(out: dict) -> list:
+    types = (ctypes.c_int32, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+             ctypes.c_uint32, ctypes.c_uint32)
+    return [_ptr(a, t) for a, t in zip(out.values(), types)]
+
+
+def inflate_scan_headers(stream, end_bits: np.ndarray) -> dict:
+    """Header-only scan of an indexed stream (cpp InflateScanHeaders): per
+    block its type, body bit offset, stored-chunk layout and the two-level
+    decode tables [nb, INFLATE_LIT_TW] / [nb, INFLATE_DIST_TW] (entries
+    sym << 5 | len; len 31 escapes into the 32-entry L2 chunk at
+    entry >> 5). lit_bits[b] == -1 marks a tree the tables cannot hold."""
+    a = _u8(stream)
+    eb = np.ascontiguousarray(end_bits, dtype=np.int64)
+    out = _scan_out(eb.shape[0])
+    st = lib().tpz_inflate_scan_headers(
+        _ptr(a, ctypes.c_uint8), a.size, _ptr(eb, ctypes.c_int64),
+        eb.shape[0], *_scan_ptrs(out))
+    errors.raise_for_status(st, "inflate_scan_headers")
+    return out
+
+
+def inflate_scan_segments(stream, hdr_bits: np.ndarray, seg_bits: np.ndarray,
+                          end_bits: np.ndarray) -> dict:
+    """inflate_scan_headers for entries that may share a block header and
+    start mid-block (the segments of inflate_index)."""
+    a = _u8(stream)
+    hb, sb, eb = (np.ascontiguousarray(x, dtype=np.int64)
+                  for x in (hdr_bits, seg_bits, end_bits))
+    out = _scan_out(eb.shape[0])
+    st = lib().tpz_inflate_scan_segments(
+        _ptr(a, ctypes.c_uint8), a.size, _ptr(hb, ctypes.c_int64),
+        _ptr(sb, ctypes.c_int64), _ptr(eb, ctypes.c_int64), eb.shape[0],
+        *_scan_ptrs(out))
+    errors.raise_for_status(st, "inflate_scan_segments")
+    return out
+
+
+def inflate_index(stream, seg_out: int = 1 << 16,
+                  max_span_bytes: int = (1 << 16) + 6144):
+    """Token-aligned segment index over any raw DEFLATE stream (cpp
+    InflateIndex): one host symbol walk that writes no output. Returns
+    per-segment arrays (hdr_bits, seg_bits, end_bits, out_lens, carry_len,
+    carry_dist) and `consumed` bytes, or None when the stream does not fit
+    the device path."""
+    a = _u8(stream)
+    max_segs = max(16, 2 * (a.size // 1024) + 64 * 1024)
+    i64 = {k: np.zeros(max_segs, np.int64)
+           for k in ("hdr_bits", "seg_bits", "end_bits", "out_lens")}
+    i32 = {k: np.zeros(max_segs, np.int32) for k in ("carry_len", "carry_dist")}
+    nseg = np.zeros(1, np.int64)
+    consumed = ctypes.c_size_t(0)
+    st = lib().tpz_inflate_index(
+        _ptr(a, ctypes.c_uint8), a.size, seg_out, max_segs, max_span_bytes,
+        *[_ptr(v, ctypes.c_int64) for v in i64.values()],
+        *[_ptr(v, ctypes.c_int32) for v in i32.values()],
+        _ptr(nseg, ctypes.c_int64), ctypes.byref(consumed))
+    if st != 0:
+        return None
+    k = int(nseg[0])
+    idx = {name: v[:k] for name, v in {**i64, **i32}.items()}
+    idx["consumed"] = int(consumed.value)
+    return idx
+
+
+def inflate(data, max_out: int | None = None) -> tuple[bytes, int]:
+    """Host raw-DEFLATE decode. Returns (plaintext, consumed input bytes)."""
+    a = _u8(data)
+    cap = max_out if max_out is not None else max(1024, 64 * a.size + 1024)
+    for _ in range(8):
+        out = np.zeros(cap, dtype=np.uint8)
+        n = ctypes.c_size_t(cap)
+        consumed = ctypes.c_size_t(0)
+        st = lib().tpz_inflate(
+            _ptr(a, ctypes.c_uint8), a.size, _ptr(out, ctypes.c_uint8),
+            ctypes.byref(n), ctypes.byref(consumed))
+        if st == errors.STATUS_BUFFER_TOO_SMALL and max_out is None:
+            cap = n.value
+            continue
+        errors.raise_for_status(st, "inflate")
+        return out[:n.value].tobytes(), consumed.value
+    errors.raise_for_status(errors.STATUS_BUFFER_TOO_SMALL, "inflate: output cap")
