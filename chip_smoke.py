@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the tpz_torch gzip encode and decode paths on one NVIDIA
-GPU.
+"""Smoke run of the tpz_torch gzip and LZHUF encode and decode paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -38,10 +38,40 @@ Phases (each prints one line; any failure raises and exits non-zero):
               warm median of 3 decompress_many calls on the 2 x 16 MiB
               batch (MB/s of plaintext) and a per-stage split from CUDA
               events, with the host CRC time
-A JSON record of the kernels (launches from the headline decode batch,
-times at the headline shapes) comes before the card's name and power
-limit; the last line is
-{"ok": true, "device": {...}}. Needs the repository checkout around it.
+  9. lzhuf-kernels
+              the v1 parse-walk kernel against its plain torch version
+              (exact reach and lengths) on the blocks of 1 MiB of
+              corpus.mixed at lh5 and lh7 and on the headline batch's
+              blocks at lh5; the LZHUF token-walk kernel against its plain
+              version (exact markers) and the copy machine at dist_bias 1
+              against the plain resolve (exact bytes) on the segmented
+              layout of 1 MiB lh5 and lh7 streams and of a 16 MiB lh5
+              stream of the headline batch; each kernel timed beside its
+              plain version at the headline shape
+ 10. lzhuf-slice
+              api.compress_many on the headline batch at lh5, one 16 MiB
+              buffer of it at lh7 and 1 MiB at lh4 and lh6, device "cuda":
+              every body equals the oracle's lzhuf encode (max_chain 16);
+              then api.decompress_many of each gives the input back. Each
+              call runs with the launch counts set to 0 just before it and
+              read just after: the v1 parse walk on encode, the token walk
+              and the copy machine on decode; nothing declines to the host
+ 11. lzhuf-timing
+              lh5 encode MB/s (warm median of 3 calls on the timing
+              batches) and decode MB/s (warm median of 3 calls on the
+              slice's lh5 blobs), each with a per-stage split from CUDA
+              events
+ 12. lzhuf-profile
+              one more warm lh5 encode of the headline batch and decode of
+              its blobs under torch.profiler: host wall time, device busy
+              time (the union of the kernel, memcpy and memset intervals
+              inside the call), the device's idle share (1 - busy / wall)
+              and the device ops that took the most time
+A JSON record of the kernels (launches from each one's main-path call:
+gzip encode, gzip decode, lh5 encode, lh5 decode; times and bounds at
+the headline shapes) comes before the card's name and power limit; the
+last line is {"ok": true, "device": {...}}. Needs the repository checkout
+around it.
 """
 
 from __future__ import annotations
@@ -49,9 +79,11 @@ from __future__ import annotations
 import gzip
 import json
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -63,10 +95,34 @@ HEADLINE_BYTES = 16 * MIB
 HEADLINE_BUFFERS = 2
 LEVEL = 6
 TIMING_ITERS = 3
+LZHUF_METHOD = "lh5"
+# A kernel's bound is the larger of its bytes (each input read once, each
+# array the kernel writes written once) over the card's memory rate and
+# its int32 operations over the card's int32 rate. NVIDIA's H100 SXM
+# datasheet (700 W): 3.35 TB/s, and 67 T/s float32 outside the tensor
+# cores, i.e. 132 SMs x 128 FP32 lanes x 2 (an FMA) x 1.98 GHz. An SM has
+# 64 INT32 lanes (NVIDIA's Hopper architecture whitepaper), so int32
+# issues at 67e12 / 2 / 2 per second.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12 / 4
+# Operations per loop trip, counted by hand from the CUDA sources (each
+# add, shift, logical op, compare, select, min, max, load and store is
+# one) along the trip's shortest path: a level-2 escape, a lazy probe or
+# a corrupt-input clamp adds more, so the bound stays a least time.
+OPS_STAGE_WORD = 4         # Huffman walks: staging one table/slice word
+OPS_LZHUF_LITERAL = 44     # lzhuf_walk.cu: a token that is a literal
+OPS_LZHUF_MATCH = 108      # ... a match (p lookup, raw bits, marker)
+OPS_SYMBOL_LITERAL = 49    # symbol_walk.cu: a literal
+OPS_SYMBOL_MATCH = 137     # ... a match (length and distance extras)
+OPS_V1_VISIT = 31          # parse_v1_walk.cu: a visited position
+OPS_V1_EXTEND = 16         # ... one 4-byte extension compare
+OPS_V3_TOKEN = 15          # parse_walk.cu: a token on the mark fast path
+OPS_COPY_POSITION = 16     # resolve_walk.cu: window state + phase 2 check
+OPS_COPY_MATCHED = 12      # ... phase 1's copy of one matched position
 
 
 def _mixed(args):
-    from tpz_torch._shared import corpus
+    from tpz_torch.utils import corpus
 
     n, seed = args
     return corpus.mixed(n, seed=seed)
@@ -155,6 +211,71 @@ def timed(fn, reps: int = 1):
     return out, start.elapsed_time(end) / reps
 
 
+def drive(phase, path, fn, counters):
+    """Run fn() with each counter (a wrapper with .launches) set to 0 just
+    before it and read just after; raises if one stayed 0. Returns (fn's
+    result, seconds, counts)."""
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {name: c.launches for name, c in counters.items()}
+    if min(counts.values()) < 1:
+        raise RuntimeError(f"{phase} {path}: a kernel of the path was never "
+                           f"launched: {counts}")
+    return out, dt, counts
+
+
+def stage_split(run) -> dict:
+    """Milliseconds between CUDA events recorded at each stage hook of
+    run(hook), summed by stage name."""
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+    events[0][1].record()
+
+    def hook(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+    run(hook)
+    torch.cuda.synchronize()
+    split = {}
+    for (_, prev), (name, ev) in zip(events, events[1:]):
+        split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
+    return split
+
+
+def warm_median(fn, iters):
+    times = []
+    for args in iters:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def walk_ops(markers, staged, literal, match) -> int:
+    """A Huffman walk's operations: the staging copy of `staged` words and
+    one trip per literal and per match marker."""
+    kind = markers >> 28
+    return (staged * OPS_STAGE_WORD + int((kind == 1).sum()) * literal
+            + int((kind == 2).sum()) * match)
+
+
+def bound(tensors, ops) -> dict:
+    """bound_ms and bound_by for a kernel call that reads or writes each
+    of `tensors` once and does `ops` operations."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_ops = ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(ms_bytes, ms_ops),
+            "bound_by": "bytes" if ms_bytes >= ms_ops else "operations"}
+
+
 def compare_parse(inputs, cfg):
     """Kernel vs plain on the same CUDA tensors. Returns (max abs
     difference over live positions, which must be 0; kernel ms; plain ms),
@@ -173,7 +294,7 @@ def compare_parse(inputs, cfg):
     err = max(int(((g - w).abs() * live).max()) for g, w in zip(got, want))
     if err:
         raise RuntimeError(f"parse kernel disagrees with plain: {err}")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, got
 
 
 def phase_kernel(headline, small):
@@ -183,17 +304,20 @@ def phase_kernel(headline, small):
     for name, data in small.items():
         for level in (1, 6):
             cfg = DeflateConfig(level=level)
-            err, _, _ = compare_parse(parse_inputs([data], cfg, "cuda"), cfg)
+            err, *_ = compare_parse(parse_inputs([data], cfg, "cuda"), cfg)
             log("kernel", input=name, level=level, blocks=16, max_abs_err=err)
     cfg = DeflateConfig(level=LEVEL)
     inputs = parse_inputs(headline, cfg, "cuda")
-    err, cold_ms, plain_ms = compare_parse(inputs, cfg)
+    err, cold_ms, plain_ms, got = compare_parse(inputs, cfg)
     args = _parse_args(cfg)
     _, ms = timed(lambda: parse.parse_extend_v3(*inputs, *args), 5)
     log("kernel", input="headline", blocks=inputs[0].shape[0],
         restart=cfg.restart, max_abs_err=err, ms=f"{ms:.3f}",
         first_call_ms=f"{cold_ms:.3f}", plain_ms=f"{plain_ms:.3f}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # The kernel writes one [NB, N] int32 array; visited is its size.
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound([*inputs, got[0]],
+                    int((got[0] > 0).sum()) * OPS_V3_TOKEN)}
 
 
 def phase_slice(batch):
@@ -202,14 +326,10 @@ def phase_slice(batch):
     from tpz_torch.codecs.deflate import DeflateConfig
     from tpz_torch.kernels import parse
 
-    parse.parse_extend_v3.launches = 0
-    t0 = time.perf_counter()
-    blobs = api.compress_many(batch, "gzip", level=LEVEL, device="cuda")
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = parse.parse_extend_v3.launches
-    if launches < 1:
-        raise RuntimeError("main path never launched the parse-walk kernel")
+    blobs, dt, c = drive("slice", "gzip-encode", lambda: api.compress_many(
+        batch, "gzip", level=LEVEL, device="cuda"),
+        {"parse": parse.parse_extend_v3})
+    launches = c["parse"]
     refs = oracle.deflate_encode_many(batch,
                                       DeflateConfig(LEVEL).params_array())
     hdr = gzip_codec.header_bytes(LEVEL)
@@ -233,33 +353,17 @@ def phase_timing(batches, smi) -> None:
     from tpz_torch.kernels import deflate_pipeline as dp
 
     total = sum(len(d) for d in batches[0])
-    times = []
-    for batch in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        api.compress_many(batch, "gzip", level=LEVEL, device="cuda")
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    median = statistics.median(times)
+    median, times = warm_median(lambda b: api.compress_many(
+        b, "gzip", level=LEVEL, device="cuda"), batches)
     log("timing", mb_per_s=f"{total / median / 1e6:.2f}",
         median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
         card=f"'{smi}'")
 
     # Per-stage split: a CUDA event after each device stage.
     batch = batches[-1]
-    events = [("start", torch.cuda.Event(enable_timing=True))]
-    events[0][1].record()
-
-    def hook(stage):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((stage, ev))
-
-    bodies = dp.compress_many(batch, DeflateConfig(LEVEL), "cuda",
-                              stage_hook=hook)
-    torch.cuda.synchronize()
-    split = {name: events[i][1].elapsed_time(ev)
-             for i, (name, ev) in enumerate(events[1:])}
+    bodies = []
+    split = stage_split(lambda hook: bodies.extend(dp.compress_many(
+        batch, DeflateConfig(LEVEL), "cuda", stage_hook=hook)))
     t0 = time.perf_counter()
     hdr = gzip_codec.header_bytes(LEVEL)
     for d, body in zip(batch, bodies):
@@ -413,8 +517,21 @@ def phase_decode_kernels(small, big, body):
             resolve_16MiB_ms=f"{dense_ms:.3f}",
             resolve_16MiB_plain_ms=f"{dense_plain_ms:.3f}")
     # The kernels line keeps the headline input's times (the last one).
-    return ({"max_abs_err": err_w, "ms": walk_ms, "plain_ms": walk_plain_ms},
-            {"max_abs_err": err_r, "ms": res_ms, "plain_ms": res_plain_ms})
+    walk_bound = bound([*args, markers], walk_ops(
+        markers, args[0].numel() + args[3].numel(), OPS_SYMBOL_LITERAL,
+        OPS_SYMBOL_MATCH))
+    res_bound = bound(prep[:2], copy_ops(prep[0]))
+    return ({"max_abs_err": err_w, "ms": walk_ms, "plain_ms": walk_plain_ms,
+             **walk_bound},
+            {"max_abs_err": err_r, "ms": res_ms, "plain_ms": res_plain_ms,
+             **res_bound})
+
+
+def copy_ops(markers) -> int:
+    """The copy machine's operations on `markers`: every position once in
+    each phase, and phase 1's copy of each position inside a match."""
+    return (markers.numel() * OPS_COPY_POSITION
+            + int((markers == 0).sum()) * OPS_COPY_MATCHED)
 
 
 def drive_decode(path, fn, want):
@@ -425,19 +542,10 @@ def drive_decode(path, fn, want):
     from tpz_torch.kernels import resolve_walk as rw
 
     declines = ip.host_declines
-    ip.symbol_walk.launches = 0
-    rw.resolve_copy_machine.launches = 0
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"walk": ip.symbol_walk.launches,
-                "resolve": rw.resolve_copy_machine.launches}
+    out, dt, launches = drive("decode-slice", path, fn, {
+        "walk": ip.symbol_walk, "resolve": rw.resolve_copy_machine})
     if out != want:
         raise RuntimeError(f"{path}: decode did not return its input")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"{path}: decode path skipped a kernel: "
-                           f"{launches}")
     if ip.host_declines != declines:
         raise RuntimeError(f"{path}: decode declined to the host inflate")
     log("decode-slice", path=path, cold_s=f"{dt:.3f}",
@@ -471,32 +579,15 @@ def phase_decode_timing(batch, blobs, smi) -> None:
     from tpz_torch.codecs import gzip_codec
 
     total = sum(len(d) for d in batch)
-    times = []
-    for _ in range(TIMING_ITERS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        api.decompress_many(blobs, "gzip", device="cuda")
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    median = statistics.median(times)
+    median, times = warm_median(lambda _: api.decompress_many(
+        blobs, "gzip", device="cuda"), range(TIMING_ITERS))
     log("decode-timing", mb_per_s=f"{total / median / 1e6:.2f}",
         median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
         card=f"'{smi}'")
 
     # Per-stage split: a CUDA event after each stage, summed over buffers.
-    events = [("start", torch.cuda.Event(enable_timing=True))]
-    events[0][1].record()
-
-    def hook(stage):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((stage, ev))
-
-    gzip_codec.decompress_many(blobs, device="cuda", stage_hook=hook)
-    torch.cuda.synchronize()
-    split = {}
-    for (_, prev), (name, ev) in zip(events, events[1:]):
-        split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
+    split = stage_split(lambda hook: gzip_codec.decompress_many(
+        blobs, device="cuda", stage_hook=hook))
     t0 = time.perf_counter()
     for d in batch:
         zlib.crc32(d)
@@ -504,9 +595,293 @@ def phase_decode_timing(batch, blobs, smi) -> None:
     log("decode-timing", **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
 
 
+def _dict_bits(method: str) -> int:
+    from tpz_torch import constants as C
+
+    return C.LZHUF_METHODS[method][0]
+
+
+def lzhuf_parse_inputs(datas, method):
+    """The v1 parse walk's inputs (screen, best_j, words, block_len) for
+    `datas`, built on the card by the LZHUF encode pipeline's own
+    stages, and the window."""
+    from tpz_torch.kernels import lzhuf_pipeline as lp
+    from tpz_torch.kernels import matchfinder as mf
+
+    window = 1 << _dict_bits(method)
+    blocks, span_off, span_len, block_len, _ = lp.make_blocks(
+        datas, window, "cuda")
+    so, sln, bl = (torch.from_numpy(a).cuda()
+                   for a in (span_off, span_len, block_len))
+    bj, bs, words, _ = mf.screen_candidates(blocks, so, sln, lp.MAX_CHAIN,
+                                            window, lp.BLOCK, lp.MAX_MATCH)
+    sl = slice(window, window + lp.BLOCK)
+    return (bs[:, sl].contiguous(), bj[:, sl].contiguous(), words, bl), window
+
+
+def compare_parse_v1(inputs, window):
+    """v1 parse-walk kernel vs plain on the same CUDA tensors: ((reach,
+    mlen), max abs difference, kernel ms, plain ms), each timed on its
+    first call. Raises unless both outputs are equal everywhere."""
+    from tpz_torch.kernels import lzhuf_pipeline as lp
+    from tpz_torch.kernels import parse
+
+    before = parse.parse_extend_v1.launches
+    got, ms = timed(lambda: parse.parse_extend_v1(
+        *inputs, window, max_match=lp.MAX_MATCH))
+    if parse.parse_extend_v1.launches != before + 1:
+        raise RuntimeError("v1 parse wrapper did not launch its kernel")
+    want, plain_ms = timed(lambda: parse.parse_extend_v1_plain(
+        *inputs, window, max_match=lp.MAX_MATCH))
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    if err:
+        raise RuntimeError(f"v1 parse kernel disagrees with plain: {err}")
+    return got, err, ms, plain_ms
+
+
+def lzhuf_walk_inputs(body, n, method):
+    """The device layout of the raw LZHUF body `body` (n output bytes):
+    segments cut at 64 KiB and at every block's table change, as the
+    decode pipeline's own host stages build it."""
+    from tpz_torch import oracle
+    from tpz_torch.kernels import inflate_pipeline as ip
+    from tpz_torch.kernels import lzhuf_walk as lw
+
+    bits = _dict_bits(method)
+    idx = oracle.lzhuf_index(body, n, bits, seg_out=lw.BLOCK)
+    spans = (idx["end_bits"] + 7) // 8 + 1 - idx["seg_bits"] // 8
+    rows = lw._segment_tables(idx, oracle._lzhuf_np(bits))
+    if rows is None or int(spans.max()) > lw.SLICE_BYTES:
+        raise RuntimeError(f"{method}: the stream does not fit the walk")
+    return ip._to_device(lw._layout([(body, idx, spans, rows)]), "cuda")
+
+
+def compare_lzhuf_walk(t):
+    """LZHUF token-walk kernel vs plain on the same CUDA tensors:
+    (markers, max abs difference, kernel ms, plain ms), each timed on its
+    first call. Raises unless the markers are equal."""
+    from tpz_torch.kernels import lzhuf_walk as lw
+
+    args = lw._walk_args(t)
+    before = lw.lzhuf_walk.launches
+    got, ms = timed(lambda: lw.lzhuf_walk(*args))
+    if lw.lzhuf_walk.launches != before + 1:
+        raise RuntimeError("lzhuf walk wrapper did not launch its kernel")
+    want, plain_ms = timed(lambda: lw.lzhuf_walk_plain(*args))
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err:
+        raise RuntimeError(f"lzhuf-walk kernel disagrees with plain: {err}")
+    return got, err, ms, plain_ms
+
+
+def phase_lzhuf_kernels(small, headline):
+    """Both LZHUF kernels and the copy machine at dist_bias 1 on the
+    LZHUF path's inputs; returns the headline rows of #4 and #5."""
+    from tpz_torch import oracle
+    from tpz_torch.kernels import lzhuf_pipeline as lp
+    from tpz_torch.kernels import lzhuf_walk as lw
+    from tpz_torch.kernels import parse
+
+    err_p = err_w = err_r = 0
+    for method in ("lh5", "lh7"):
+        inputs, window = lzhuf_parse_inputs([small], method)
+        _, e, _, _ = compare_parse_v1(inputs, window)
+        err_p = max(err_p, e)
+        t = lzhuf_walk_inputs(oracle.lzhuf_encode(small, _dict_bits(method),
+                                                  lp.MAX_CHAIN),
+                              len(small), method)
+        markers, e, _, _ = compare_lzhuf_walk(t)
+        err_w = max(err_w, e)
+        err_r = max(err_r, compare_resolve(lw._dense_markers(markers, t), 1))
+        log("lzhuf-kernels", input=f"1MiB-mixed-{method}",
+            blocks=inputs[0].shape[0], segments=t["out_len"].shape[0],
+            parse_max_abs_err=err_p, walk_max_abs_err=err_w,
+            resolve_max_abs_err=err_r)
+
+    inputs, window = lzhuf_parse_inputs(headline, LZHUF_METHOD)
+    got, e, cold_ms, _ = compare_parse_v1(inputs, window)
+    err_p = max(err_p, e)
+    _, parse_ms = timed(lambda: parse.parse_extend_v1(
+        *inputs, window, max_match=lp.MAX_MATCH), 5)
+    _, parse_plain_ms = timed(lambda: parse.parse_extend_v1_plain(
+        *inputs, window, max_match=lp.MAX_MATCH), 3)
+    # The kernel writes reach; mlen is derived from it afterwards. A match
+    # extends from a screen of at most 8 bytes, 4 bytes a compare.
+    parse_bound = bound([*inputs, got[0]], int((got[0] > 0).sum())
+                        * OPS_V1_VISIT + int((torch.clamp(got[1] - 8, min=0)
+                                              // 4).sum()) * OPS_V1_EXTEND)
+    log("lzhuf-kernels", input=f"headline-{LZHUF_METHOD}",
+        blocks=inputs[0].shape[0], parse_max_abs_err=err_p,
+        parse_ms=f"{parse_ms:.3f}", parse_first_call_ms=f"{cold_ms:.3f}",
+        parse_plain_ms=f"{parse_plain_ms:.3f}",
+        parse_bound_ms=f"{parse_bound['bound_ms']:.4f}")
+    del inputs, got
+
+    data = headline[0]
+    t = lzhuf_walk_inputs(oracle.lzhuf_encode(data, _dict_bits(LZHUF_METHOD),
+                                              lp.MAX_CHAIN),
+                          len(data), LZHUF_METHOD)
+    markers, e, cold_ms, walk_plain_ms = compare_lzhuf_walk(t)
+    err_w = max(err_w, e)
+    args = lw._walk_args(t)
+    _, walk_ms = timed(lambda: lw.lzhuf_walk(*args), 5)
+    err_r = max(err_r, compare_resolve(lw._dense_markers(markers, t), 1))
+    walk_bound = bound([*args, markers], walk_ops(
+        markers, args[0].numel() + args[4].numel(), OPS_LZHUF_LITERAL,
+        OPS_LZHUF_MATCH))
+    log("lzhuf-kernels", input=f"16MiB-{LZHUF_METHOD}",
+        segments=args[0].shape[0], walk_max_abs_err=err_w,
+        resolve_max_abs_err=err_r, walk_ms=f"{walk_ms:.3f}",
+        walk_first_call_ms=f"{cold_ms:.3f}",
+        walk_plain_ms=f"{walk_plain_ms:.3f}",
+        walk_bound_ms=f"{walk_bound['bound_ms']:.4f}")
+    return ({"max_abs_err": err_p, "ms": parse_ms,
+             "plain_ms": parse_plain_ms, **parse_bound},
+            {"max_abs_err": err_w, "ms": walk_ms, "plain_ms": walk_plain_ms,
+             **walk_bound})
+
+
+def phase_lzhuf_slice(batch, small):
+    """LZHUF encode and decode through the api on the card, against the
+    oracle's bytes and the inputs. Returns the lh5 batch's blobs and its
+    encode and decode counts."""
+    from tpz_torch import api, oracle
+    from tpz_torch.kernels import lzhuf_walk as lw
+    from tpz_torch.kernels import parse
+    from tpz_torch.kernels import resolve_walk as rw
+
+    cases = {LZHUF_METHOD: list(batch), "lh7": [batch[0]], "lh4": [small],
+             "lh6": [small]}
+    blobs, counts = {}, {}
+    for method, datas in cases.items():
+        out, dt, c = drive("lzhuf-slice", f"encode-{method}",
+                           lambda: api.compress_many(datas, method,
+                                                     device="cuda"),
+                           {"parse_v1": parse.parse_extend_v1})
+        bits = _dict_bits(method)
+        for i, (d, blob) in enumerate(zip(datas, out)):
+            if blob[15:] != oracle.lzhuf_encode(d, bits, 16):
+                raise RuntimeError(f"{method} buffer {i}: body differs from "
+                                   "the oracle's")
+        blobs[method] = out
+        counts[method] = c
+        log("lzhuf-slice", path=f"encode-{method}", buffers=len(datas),
+            bytes=sum(len(d) for d in datas),
+            ratio=f"{sum(map(len, out)) / sum(map(len, datas)):.4f}",
+            cold_s=f"{dt:.3f}", parse_v1_launches=c["parse_v1"],
+            oracle_identical=True)
+    for method, datas in cases.items():
+        declines = lw.host_declines
+        got, dt, c = drive("lzhuf-slice", f"decode-{method}",
+                           lambda: api.decompress_many(blobs[method], method,
+                                                       device="cuda"),
+                           {"walk": lw.lzhuf_walk,
+                            "resolve": rw.resolve_copy_machine})
+        if got != datas:
+            raise RuntimeError(f"decode-{method}: did not return its input")
+        if lw.host_declines != declines:
+            raise RuntimeError(f"decode-{method}: declined to the host")
+        counts[method].update(c)
+        log("lzhuf-slice", path=f"decode-{method}", cold_s=f"{dt:.3f}",
+            walk_launches=c["walk"], resolve_launches=c["resolve"],
+            host_declines=0, identical=True)
+    return blobs[LZHUF_METHOD], counts[LZHUF_METHOD]
+
+
+def phase_lzhuf_timing(batches, batch, blobs, smi) -> None:
+    from tpz_torch import api
+    from tpz_torch.codecs import lzhuf
+    from tpz_torch.kernels import lzhuf_pipeline as lp
+
+    total = sum(len(d) for d in batches[0])
+    median, times = warm_median(lambda b: api.compress_many(
+        b, LZHUF_METHOD, device="cuda"), batches)
+    log("lzhuf-timing", direction="encode", method=LZHUF_METHOD,
+        mb_per_s=f"{total / median / 1e6:.2f}", median_s=f"{median:.4f}",
+        all_s=[round(t, 4) for t in times], card=f"'{smi}'")
+    split = stage_split(lambda hook: lp.compress_many(
+        batches[-1], LZHUF_METHOD, "cuda", stage_hook=hook))
+    log("lzhuf-timing", direction="encode",
+        **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
+
+    total = sum(len(d) for d in batch)
+    median, times = warm_median(lambda _: api.decompress_many(
+        blobs, LZHUF_METHOD, device="cuda"), range(TIMING_ITERS))
+    log("lzhuf-timing", direction="decode", method=LZHUF_METHOD,
+        mb_per_s=f"{total / median / 1e6:.2f}", median_s=f"{median:.4f}",
+        all_s=[round(t, 4) for t in times], card=f"'{smi}'")
+    split = stage_split(lambda hook: lzhuf.decompress_many(
+        blobs, LZHUF_METHOD, device="cuda", stage_hook=hook))
+    log("lzhuf-timing", direction="decode",
+        **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy(events, t0_us: float, t1_us: float):
+    """(busy ms, {op name: ms}) of the device events of a chrome trace
+    that lie in [t0_us, t1_us]."""
+    spans, by_name = [], {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
+            continue
+        a, d = float(e["ts"]), float(e.get("dur", 0))
+        if a < t0_us or a + d > t1_us:
+            continue
+        spans.append((a, a + d))
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + d / 1e3
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy / 1e3, by_name
+
+
+def profile_call(fn, label: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function(label):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    mark = next(e for e in events if e.get("name") == label
+                and e.get("cat") == "user_annotation")
+    t0_us = float(mark["ts"])
+    busy_ms, by_name = device_busy(events, t0_us, t0_us + float(mark["dur"]))
+    if busy_ms <= 0:
+        raise RuntimeError(f"{label}: the trace holds no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("lzhuf-profile", call=label, wall_ms=f"{wall_ms:.2f}",
+        busy_ms=f"{busy_ms:.2f}", idle_share=f"{1 - busy_ms / wall_ms:.4f}",
+        top=json.dumps({k[:60]: round(v, 3) for k, v in top}))
+
+
+def phase_lzhuf_profile(batch, blobs) -> None:
+    from tpz_torch import api
+
+    profile_call(lambda: api.compress_many(batch, LZHUF_METHOD,
+                                           device="cuda"),
+                 f"{LZHUF_METHOD}-encode")
+    profile_call(lambda: api.decompress_many(blobs, LZHUF_METHOD,
+                                             device="cuda"),
+                 f"{LZHUF_METHOD}-decode")
+
+
 def main() -> int:
     import tpz_torch  # noqa: F401 — fails at once outside a checkout
-    from tpz_torch._shared import corpus
+    from tpz_torch.utils import corpus
     from tpz_torch.codecs import gzip_codec
 
     smi = phase_device()
@@ -530,16 +905,29 @@ def main() -> int:
                                          blobs[0][hdr_len:-8])
     dec = phase_decode_slice(batches[0], blobs)
     phase_decode_timing(batches[0], blobs, smi)
+    del blobs
+    parse_v1, lz_walk = phase_lzhuf_kernels(small["mixed"], batches[0])
+    lz_blobs, lz = phase_lzhuf_slice(batches[0], small["mixed"])
+    phase_lzhuf_timing(batches[1:], batches[0], lz_blobs, smi)
+    phase_lzhuf_profile(batches[0], lz_blobs)
+    # Each kernel's launches come from its own main-path call: gzip encode
+    # (#1), gzip decode (#2, #3), lh5 encode (#4), lh5 decode (#5).
     rows = [("parse_walk_v3", "parse_walk.cu", "tpz/kernels/parse.py:464",
              launches, kern),
             ("symbol_walk", "symbol_walk.cu",
              "tpz/kernels/inflate_pipeline.py:55", dec["walk"], walk),
             ("resolve_copy_machine", "resolve_walk.cu",
-             "tpz/kernels/resolve_walk.py:91", dec["resolve"], resolve)]
+             "tpz/kernels/resolve_walk.py:91", dec["resolve"], resolve),
+            ("parse_walk_v1", "parse_v1_walk.cu", "tpz/kernels/parse.py:71",
+             lz["parse_v1"], parse_v1),
+            ("lzhuf_walk", "lzhuf_walk.cu", "tpz/kernels/lzhuf_walk.py:93",
+             lz["walk"], lz_walk)]
+    # None of these walks has one PyTorch call that computes its function.
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"tpz_torch/csrc/{src}",
         "replaces": where, "launches": n, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None}
         for name, src, where, n, k in rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

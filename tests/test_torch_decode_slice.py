@@ -18,8 +18,8 @@ import pytest
 import torch
 
 from tpz.codecs import zlib_codec as jzlib
-from tpz_torch import api
-from tpz_torch._shared import corpus, errors
+from tpz_torch import api, errors
+from tpz_torch.utils import corpus
 from tpz_torch.codecs import gzip_codec, zlib_codec
 from tpz_torch.codecs.deflate import DeflateConfig
 from tpz_torch.kernels import deflate_pipeline
@@ -227,8 +227,8 @@ def test_cuda_request_without_card_raises():
 
 
 def test_unknown_format_raises():
-    with pytest.raises(ValueError, match="lh5"):
-        api.decompress(b"abc", "lh5", device="cpu")
+    with pytest.raises(ValueError, match="bzip2"):
+        api.decompress(b"abc", "bzip2", device="cpu")
 
 
 def test_tz_sidecar_bounds_checked(no_declines):

@@ -20,7 +20,7 @@ import torch
 import tpz.oracle as joracle
 from tpz.kernels import inflate_pipeline as jip
 from tpz_torch import oracle
-from tpz_torch._shared import corpus
+from tpz_torch.utils import corpus
 from tpz_torch.codecs import deflate
 from tpz_torch.kernels import inflate_pipeline as ip
 

@@ -1,0 +1,115 @@
+"""The port keeps its own copies of the reference package's jax-free
+files (tpz_torch/constants.py, errors.py, utils/corpus.py) and writes the
+C++ oracle's generated_constants.h from its own constants. These tests
+hold the copies equal to the reference's, the header byte-equal to the
+one the reference generator writes, and show in a fresh interpreter that
+importing the port and loading its oracle loads neither jax nor any file
+under tpz/. Everything compared is exact."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import tpz.constants as jconstants
+import tpz.errors as jerrors
+from tpz.utils import corpus as jcorpus
+from tpz_torch import REPO_ROOT, api, oracle
+from tpz_torch import constants, errors
+from tpz_torch.utils import corpus
+
+
+def _public(mod):
+    return {k: v for k, v in vars(mod).items()
+            if not k.startswith("_") and not callable(v)
+            and not isinstance(v, type(os))}
+
+
+def test_constants_equal_the_reference():
+    mine, ref = _public(constants), _public(jconstants)
+    assert sorted(mine) == sorted(ref)
+    for name, v in ref.items():
+        if isinstance(v, np.ndarray):
+            assert mine[name].dtype == v.dtype, name
+            np.testing.assert_array_equal(mine[name], v, err_msg=name)
+        else:
+            assert mine[name] == v, name
+
+
+def test_errors_equal_the_reference():
+    names = sorted(k for k, v in vars(jerrors).items()
+                   if isinstance(v, type) and issubclass(v, Exception))
+    assert names == sorted(k for k, v in vars(errors).items()
+                           if isinstance(v, type) and issubclass(v, Exception))
+    for status in range(-1, 8):
+        raised = []
+        for mod in (errors, jerrors):
+            try:
+                mod.raise_for_status(status, "probe")
+                raised.append(None)
+            except Exception as e:  # noqa: BLE001 — comparing the classes
+                raised.append((type(e).__name__, str(e)))
+        assert raised[0] == raised[1], status
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("kind", ["text", "mixed", "repetitive",
+                                  "random_bytes"])
+def test_corpus_equals_the_reference(kind, seed):
+    n = 20_000 + 333 * seed
+    assert getattr(corpus, kind)(n, seed=seed) == getattr(jcorpus, kind)(
+        n, seed=seed)
+
+
+def test_generated_header_equals_the_reference_generators(tmp_path):
+    mine = tmp_path / "port.h"
+    ref = tmp_path / "ref.h"
+    oracle.write_constants_header(str(mine))
+    subprocess.run([sys.executable, os.path.join(REPO_ROOT, "cpp",
+                                                 "gen_constants.py"),
+                    str(ref)], check=True, capture_output=True,
+                   env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert mine.read_bytes() == ref.read_bytes()
+
+
+def test_port_loads_nothing_from_the_reference_package():
+    """A fresh interpreter imports the port's api, builds and loads its
+    oracle and encodes and decodes on the CPU: jax stays unloaded and no
+    loaded module's file lies under tpz/."""
+    oracle.build()  # so the child only loads it
+    code = (
+        "import json, os, sys\n"
+        "import tpz_torch.api as api\n"
+        "from tpz_torch import REPO_ROOT, oracle\n"
+        "oracle.lib()\n"
+        "blob = api.compress(b'abc' * 100, 'lh5', device='cpu')\n"
+        "assert api.decompress(blob, 'lh5', device='cpu') == b'abc' * 100\n"
+        "ref = os.path.join(REPO_ROOT, 'tpz') + os.sep\n"
+        "bad = sorted(n for n, m in list(sys.modules.items())\n"
+        "             if (getattr(m, '__file__', None) or '').startswith(ref))\n"
+        "print(json.dumps({'jax': 'jax' in sys.modules,\n"
+        "                  'tpz': 'tpz' in sys.modules, 'ref': bad}))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, check=True, cwd=REPO_ROOT,
+                       env=dict(os.environ, PYTHONPATH=REPO_ROOT))
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == {
+        "jax": False, "tpz": False, "ref": []}
+
+
+@pytest.mark.parametrize("call", [
+    lambda: api.compress(b"abc", "gzip"),
+    lambda: api.compress_many([b"abc"], "lh5"),
+    lambda: api.decompress(b"\x1f\x8b", "gzip"),
+    lambda: api.decompress_many([b"TPZLlh7" + bytes(8)], "lh7"),
+], ids=["compress", "compress_many", "decompress", "decompress_many"])
+def test_entry_points_default_to_the_card(call):
+    """The entry points run on the card unless the caller asks for the
+    CPU; with no card they raise instead of running elsewhere."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()

@@ -1,11 +1,18 @@
 """Public entry points of the port: whole-buffer and batched encode and
-decode for "gzip", "deflate" and "zlib" on an explicit torch device
-("cuda" or "cpu")."""
+decode for "gzip", "deflate", "zlib" and the LZHUF methods "lh4"-"lh7".
+They run on the card (`device="cuda"`) unless the caller asks for the CPU
+(`device="cpu"`); "cuda" without a card raises."""
 
 from __future__ import annotations
 
-from tpz_torch.codecs import deflate, gzip_codec, zlib_codec
+import functools
 
+from tpz_torch import constants as C
+from tpz_torch.codecs import deflate, gzip_codec, lzhuf, zlib_codec
+
+# Each entry is called as fn(data(s), level, device=...) to encode and
+# fn(data(s), device=...) to decode. The LZHUF entries bind their method
+# and ignore the level (LZHUF has one profile), as the reference's do.
 _COMPRESS = {"gzip": gzip_codec.compress, "deflate": deflate.compress,
              "zlib": zlib_codec.compress}
 _COMPRESS_MANY = {"gzip": gzip_codec.compress_many,
@@ -13,6 +20,15 @@ _COMPRESS_MANY = {"gzip": gzip_codec.compress_many,
                   "zlib": zlib_codec.compress_many}
 _DECOMPRESS = {"gzip": gzip_codec.decompress, "deflate": deflate.decompress,
                "zlib": zlib_codec.decompress}
+_DECOMPRESS_MANY = {"gzip": gzip_codec.decompress_many}
+for _m in sorted(C.LZHUF_METHODS):
+    _COMPRESS[_m] = (lambda data, level, *, device, _m=_m:
+                     lzhuf.compress(data, _m, device=device))
+    _COMPRESS_MANY[_m] = (lambda datas, level, *, device, _m=_m:
+                          lzhuf.compress_many(datas, _m, device=device))
+    _DECOMPRESS[_m] = functools.partial(lzhuf.decompress, method=_m)
+    _DECOMPRESS_MANY[_m] = functools.partial(lzhuf.decompress_many,
+                                             method=_m)
 
 
 def _lookup(table: dict, format: str):
@@ -23,26 +39,27 @@ def _lookup(table: dict, format: str):
 
 
 def compress(data: bytes, format: str = "gzip", level: int = 6, *,
-             device) -> bytes:
+             device="cuda") -> bytes:
     return _lookup(_COMPRESS, format)(data, level, device=device)
 
 
 def compress_many(datas, format: str = "gzip", level: int = 6, *,
-                  device) -> list[bytes]:
+                  device="cuda") -> list[bytes]:
     """Batch encode: every buffer's blocks share one device batch; each
     buffer is its own stream."""
     return _lookup(_COMPRESS_MANY, format)(datas, level, device=device)
 
 
-def decompress(data: bytes, format: str = "gzip", *, device) -> bytes:
+def decompress(data: bytes, format: str = "gzip", *, device="cuda") -> bytes:
     return _lookup(_DECOMPRESS, format)(data, device=device)
 
 
-def decompress_many(datas, format: str = "gzip", *, device) -> list[bytes]:
+def decompress_many(datas, format: str = "gzip", *,
+                    device="cuda") -> list[bytes]:
     """Batch decode: gzip puts every TZ-indexed member of every buffer in
-    one device batch; other formats and other members decode per
-    buffer."""
+    one device batch, and the LZHUF methods every buffer's segments; other
+    formats decode per buffer."""
     fn = _lookup(_DECOMPRESS, format)
-    if format == "gzip":
-        return gzip_codec.decompress_many(datas, device=device)
+    if format in _DECOMPRESS_MANY:
+        return _DECOMPRESS_MANY[format](datas, device=device)
     return [fn(d, device=device) for d in datas]

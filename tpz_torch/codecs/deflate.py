@@ -13,8 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from tpz_torch import oracle
-from tpz_torch._shared import errors
+from tpz_torch import errors, oracle
 from tpz_torch.kernels import deflate_pipeline, inflate_pipeline
 from tpz_torch.kernels.deflate_pipeline import _nohook
 
@@ -76,27 +75,27 @@ class DeflateConfig:
         )
 
 
-def compress(data: bytes, level: int = 6, *, device,
+def compress(data: bytes, level: int = 6, *, device="cuda",
              config: DeflateConfig | None = None) -> bytes:
     cfg = config or DeflateConfig(level=level)
     return deflate_pipeline.compress(data, cfg, device)
 
 
-def compress_indexed(data: bytes, level: int = 6, *, device,
+def compress_indexed(data: bytes, level: int = 6, *, device="cuda",
                      config: DeflateConfig | None = None):
     """Encode + block index: (stream, block_end_bits, block_out_lens)."""
     cfg = config or DeflateConfig(level=level)
     return deflate_pipeline.compress_indexed(data, cfg, device)
 
 
-def compress_many(datas, level: int = 6, *, device,
+def compress_many(datas, level: int = 6, *, device="cuda",
                   config: DeflateConfig | None = None) -> list[bytes]:
     """Batch encode: one device invocation for many independent streams."""
     cfg = config or DeflateConfig(level=level)
     return deflate_pipeline.compress_many(list(datas), cfg, device)
 
 
-def decompress(data: bytes, *, device) -> bytes:
+def decompress(data: bytes, *, device="cuda") -> bytes:
     plain, consumed = decompress_prefix(data, device=device)
     if consumed != len(data):
         raise errors.DataError(f"trailing garbage after deflate stream "
@@ -104,7 +103,7 @@ def decompress(data: bytes, *, device) -> bytes:
     return plain
 
 
-def decompress_prefix(data: bytes, *, device,
+def decompress_prefix(data: bytes, *, device="cuda",
                       stage_hook=_nohook) -> tuple[bytes, int]:
     """Decode a raw DEFLATE stream that may be followed by more data (a
     container trailer). Returns (plaintext, consumed bytes)."""

@@ -14,8 +14,8 @@ import zlib
 
 import numpy as np
 
-from tpz_torch._shared import constants as C
-from tpz_torch._shared import errors
+from tpz_torch import constants as C
+from tpz_torch import errors
 from tpz_torch.codecs import deflate
 from tpz_torch.kernels import inflate_pipeline as ip
 from tpz_torch.kernels.deflate_pipeline import _device, _nohook
@@ -51,7 +51,7 @@ def _trailer(data: bytes) -> bytes:
     return struct.pack("<II", zlib.crc32(data), len(data) & 0xFFFFFFFF)
 
 
-def compress(data: bytes, level: int = 6, *, device, mtime: int = 0,
+def compress(data: bytes, level: int = 6, *, device="cuda", mtime: int = 0,
              index: bool = True) -> bytes:
     """One gzip member; with `index`, the 'TZ' block index rides in
     FEXTRA when it fits."""
@@ -63,7 +63,7 @@ def compress(data: bytes, level: int = 6, *, device, mtime: int = 0,
     return header_bytes(level, mtime, extra) + body + _trailer(data)
 
 
-def compress_many(datas, level: int = 6, *, device,
+def compress_many(datas, level: int = 6, *, device="cuda",
                   mtime: int = 0) -> list[bytes]:
     """Batched gzip: device-batched DEFLATE bodies + per-buffer framing."""
     datas = list(datas)
@@ -149,7 +149,7 @@ def _check_trailer(plain: bytes, crc: int, isize: int) -> None:
         raise errors.DataError("gzip ISIZE mismatch")
 
 
-def decompress_member_prefix(data: bytes, off: int = 0, *, device,
+def decompress_member_prefix(data: bytes, off: int = 0, *, device="cuda",
                              stage_hook=_nohook) -> tuple[bytes, int]:
     """Decode one member starting at `off`; returns (plaintext, offset
     just past its trailer). stage_hook sees the decode's stages, then
@@ -173,7 +173,7 @@ def decompress_member_prefix(data: bytes, off: int = 0, *, device,
     return plain, tpos + 8
 
 
-def decompress(data: bytes, *, device, stage_hook=_nohook) -> bytes:
+def decompress(data: bytes, *, device="cuda", stage_hook=_nohook) -> bytes:
     out = _decompress_members_batched(data, device, stage_hook)
     if out is not None:
         return out
@@ -188,7 +188,7 @@ def decompress(data: bytes, *, device, stage_hook=_nohook) -> bytes:
     return b"".join(parts)
 
 
-def decompress_many(datas, *, device, stage_hook=_nohook) -> list[bytes]:
+def decompress_many(datas, *, device="cuda", stage_hook=_nohook) -> list[bytes]:
     """Batched gzip decode: every TZ-indexed member of every buffer shares
     one indexed batch; the other buffers decode one by one. stage_hook
     sees each decode's stages (kernels/inflate_pipeline.py), then "crc"

@@ -7,8 +7,8 @@ from __future__ import annotations
 import struct
 import zlib
 
-from tpz_torch._shared import constants as C
-from tpz_torch._shared import errors
+from tpz_torch import constants as C
+from tpz_torch import errors
 from tpz_torch.codecs import deflate
 
 
@@ -23,12 +23,12 @@ def header_bytes(level: int = 6) -> bytes:
     return bytes([cmf, flg])
 
 
-def compress(data: bytes, level: int = 6, *, device) -> bytes:
+def compress(data: bytes, level: int = 6, *, device="cuda") -> bytes:
     body = deflate.compress(data, level=level, device=device)
     return header_bytes(level) + body + struct.pack(">I", zlib.adler32(data))
 
 
-def compress_many(datas, level: int = 6, *, device) -> list[bytes]:
+def compress_many(datas, level: int = 6, *, device="cuda") -> list[bytes]:
     """Batched zlib: device-batched DEFLATE bodies + per-buffer framing."""
     datas = list(datas)
     bodies = deflate.compress_many(datas, level=level, device=device)
@@ -47,7 +47,7 @@ def check_header(cmf: int, flg: int) -> None:
         raise errors.DataError("preset dictionaries not supported")
 
 
-def decompress_prefix(data: bytes, *, device) -> tuple[bytes, int]:
+def decompress_prefix(data: bytes, *, device="cuda") -> tuple[bytes, int]:
     """Decode one zlib stream that may be followed by more data. Returns
     (plaintext, consumed bytes including header and trailer)."""
     if len(data) < 6:
@@ -64,7 +64,7 @@ def decompress_prefix(data: bytes, *, device) -> tuple[bytes, int]:
     return plain, 2 + consumed + 4
 
 
-def decompress(data: bytes, *, device) -> bytes:
+def decompress(data: bytes, *, device="cuda") -> bytes:
     plain, consumed = decompress_prefix(data, device=device)
     if consumed != len(data):  # RFC 1950 streams are exactly one member
         raise errors.DataError(f"trailing garbage after zlib stream "

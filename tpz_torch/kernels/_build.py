@@ -15,7 +15,7 @@ import glob
 import os
 import subprocess
 
-from tpz_torch._shared import REPO_ROOT
+from tpz_torch import REPO_ROOT
 from tpz_torch.utils.build import cached_build, inputs_key
 
 CSRC = os.path.join(REPO_ROOT, "tpz_torch", "csrc")
@@ -76,5 +76,9 @@ def lib() -> ctypes.CDLL:
         L.tpz_symbol_walk.argtypes = [vp] * 10 + [ci] * 4 + [vp]
         L.tpz_resolve_walk.restype = ci
         L.tpz_resolve_walk.argtypes = [vp] * 2 + [ci] * 4 + [vp]
+        L.tpz_parse_v1_walk.restype = ci
+        L.tpz_parse_v1_walk.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+        L.tpz_lzhuf_walk.restype = ci
+        L.tpz_lzhuf_walk.argtypes = [vp] * 6 + [ci] * 2 + [vp]
         _LIB = L
     return _LIB

@@ -1,5 +1,7 @@
-"""LSB-first DEFLATE bit packing in torch (port of tpz/kernels/bitpack.py
-`length_symbol`, `dist_symbol` and `assemble_stream_v2`).
+"""Bit packing in torch (port of tpz/kernels/bitpack.py `length_symbol`,
+`dist_symbol`, `assemble_stream_v2` and `assemble_stream_msb`).
+
+DEFLATE (LSB-first):
 
 Every input position contributes up to two slots (literal/length code
 with its extra bits, distance code with its extra bits) plus one
@@ -130,3 +132,45 @@ def assemble_stream_v2(data_block, is_token, mlen, mdist, table320,
     hv, hn, ho = header
     _scatter_words(words, ho.to(torch.int64), hv.to(torch.int64), hn > 0)
     return words[:total_words]
+
+
+def assemble_stream_msb(vals, nbits, body_off, total_words: int):
+    """MSB-first bit packing (the LZHUF and bzip2 direction): slots in
+    position order per block at body_off + the row's exclusive prefix sum
+    of widths. Word w holds stream bits [32w, 32w + 32) with bit 32w at
+    its MSB; the caller views the words big-endian to get bytes.
+
+    vals [NB, S] int64 u32 values (the value's MSB is written first);
+    nbits [NB, S] int32, 0..31 (0 = dead slot); body_off [NB] absolute
+    bit offsets. Returns [total_words] int64 u32 words. The reference's
+    cumsum-and-sort word assembly only spared the TPU's per-update scatter
+    cost; a slot lands in at most two words with disjoint bit ranges, so
+    an `index_add_` of both halves assembles them exactly (add == or)."""
+    n = nbits.to(torch.int64)
+    off = (body_off.to(torch.int64)[:, None] + torch.cumsum(n, dim=1) - n)
+    v = vals.to(torch.int64) & U32
+    # The value occupies bits [shift, shift + n) from the top of the 64-bit
+    # big-endian window at word w0: it is shifted left by s = 64 - shift - n
+    # (2 <= s <= 64 for 1 <= n <= 31), and split into the two words.
+    shift = off & 31
+    s = 64 - shift - n
+    high = s >= 32
+    hi = torch.where(high, v << torch.clamp(s - 32, 0, 32),
+                     v >> torch.clamp(32 - s, 0, 32)) & U32
+    lo = torch.where(high, 0, (v & (U32 >> torch.clamp(s, 0, 32)))
+                     << torch.clamp(s, 0, 31))
+    live = n > 0
+    words = torch.zeros(total_words + 2, dtype=torch.int64,
+                        device=vals.device)
+    _scatter_msb(words, off >> 5, hi, lo, live)
+    return words[:total_words] & U32
+
+
+def _scatter_msb(words, w0, hi, lo, live) -> None:
+    """Add hi into word w0 and lo into w0 + 1 for live slots; dead slots
+    and words past the end land on the two spare entries."""
+    spare = words.shape[0] - 2
+    w0 = torch.where(live & (w0 < spare), w0, spare)
+    words.index_add_(0, w0.reshape(-1), torch.where(live, hi, 0).reshape(-1))
+    words.index_add_(0, (w0 + 1).reshape(-1),
+                     torch.where(live, lo, 0).reshape(-1))

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpz_torch._shared import constants as C
+from tpz_torch import constants as C
 
 NLIT = C.DEFLATE_NUM_LITLEN          # 288
 NDIST = 30

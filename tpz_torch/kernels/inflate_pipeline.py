@@ -32,9 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpz_torch import oracle
-from tpz_torch._shared import constants as C
-from tpz_torch._shared import errors
+from tpz_torch import constants as C
+from tpz_torch import errors, oracle
 from tpz_torch.kernels.deflate_pipeline import _device, _nohook
 # Marker layout (resolve_walk's docstring): kind << 28 | payload, with
 # payload = byte for _KIND_LIT and dist << 9 | len for _KIND_MATCH.

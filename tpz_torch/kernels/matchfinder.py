@@ -1,19 +1,27 @@
-"""Spec-v3 suffix screening in torch (port of tpz/kernels/matchfinder.py
-`suffix_screen_w` / `suffix_screen_w_chunked`).
+"""Match-candidate screening in torch (port of tpz/kernels/matchfinder.py).
 
-Every insertable position is sorted by its `screen_bytes`-byte big-endian
+Spec v3 (DEFLATE, `suffix_screen_w` / `suffix_screen_w_chunked`): every
+insertable position is sorted by its `screen_bytes`-byte big-endian
 prefix; each position then scans `r_neighbors` sorted neighbours in each
 direction and keeps the top-2 candidates by (clamped screen, recency).
-The outputs are bit-identical to the reference's.
 
-Words arrive as int32 bit patterns of u32 little-endian 4-byte windows.
+Spec v1 (LZHUF, `screen_candidates` / `screen_candidates_w`): positions
+are sorted by (3-byte hash, position), so each position's K most recent
+same-hash predecessors are its K sorted-order neighbours; each is scored
+by its clamped 8-byte match and the best (ties to the most recent) wins.
+The reference's CPU route after the screen (`find_matches`, rank arrays)
+is not ported: the port's one route is the screen, then the v1 parse
+walk (kernels/parse.py).
+
+The outputs are bit-identical to the reference's. Words arrive as int32
+bit patterns of u32 little-endian 4-byte windows.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpz_torch.utils.bits import as_u32, srl32
+from tpz_torch.utils.bits import U32, as_u32, srl32, to_i32
 
 WINDOW = 32768
 BLOCK = 65536
@@ -22,6 +30,7 @@ M_TOTAL = WINDOW + BLOCK + FWD_PAD
 MAX_MATCH = 258
 MIN_MATCH = 3
 TOO_FAR = 4096
+HASH_BITS = 15
 
 _I32_MIN = -(1 << 31)
 
@@ -171,3 +180,123 @@ def suffix_screen_w_chunked(words, span_off, span_len, r_neighbors,
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+
+
+# ------------------------------------------------------------ spec v1
+
+def hash3(words: torch.Tensor) -> torch.Tensor:
+    """Hash of the low 3 bytes of each word (int32 bit patterns), as
+    cpp/lzss.cc Hash3: (v * 0x9E3779B1 mod 2^32) >> (32 - HASH_BITS).
+    Returns int64 in [0, 2^HASH_BITS)."""
+    v = words.to(torch.int64) & 0x00FFFFFF
+    return ((v * 0x9E3779B1) & U32) >> (32 - HASH_BITS)
+
+
+def words_at(data: torch.Tensor) -> torch.Tensor:
+    """data [NB, M] byte values (any integer type) -> int32 bit patterns
+    of the u32 little-endian 4-byte window at every offset. The windows
+    of a row's last three offsets wrap to its start, as the reference's
+    rolls do."""
+    d = data.to(torch.int64)
+    return to_i32(d | (torch.roll(d, -1, dims=1) << 8)
+                  | (torch.roll(d, -2, dims=1) << 16)
+                  | (torch.roll(d, -3, dims=1) << 24))
+
+
+def _match_bytes_u32(x: torch.Tensor) -> torch.Tensor:
+    """Equal leading BYTES (0..4) of a little-endian u32 xor value given
+    as an int32 bit pattern."""
+    return (((x & 0xFF) == 0).to(torch.int32)
+            + ((x & 0xFFFF) == 0).to(torch.int32)
+            + ((x & 0xFFFFFF) == 0).to(torch.int32)
+            + (x == 0).to(torch.int32))
+
+
+def _span_len_col(span_len, NB: int, device) -> torch.Tensor:
+    """span_len as a column: a scalar (one span) or [NB] (per-block span
+    lengths, for multi-buffer batches)."""
+    sl = torch.as_tensor(span_len, device=device)
+    return sl.reshape(1, 1) if sl.dim() == 0 else sl[:, None]
+
+
+def best_candidate_sorted(h, valid_insert, words, cap_at, k: int,
+                          window: int):
+    """Screen all K candidates of every position in sorted space.
+
+    h [NB, M] int64 hashes, valid_insert [NB, M] bool, words and cap_at
+    [NB, M] int32. Sorting the keys (h << 17) | idx (unique, int64 here
+    where the reference has u32) makes each position's K most recent
+    same-hash predecessors its K sorted-order neighbours; invalid
+    positions get the key 0xFFFFFFFF and sort last. Returns best_j (the
+    winner's M-index or -1) and best_screen (its clamped 8-byte match or
+    -1), [NB, M] int32 in position order."""
+    NB, M = h.shape
+    dev = h.device
+    idx = torch.arange(M, device=dev, dtype=torch.int64).expand(NB, M)
+    key = torch.where(valid_insert, (h << 17) | idx, U32)
+    skey, perm = torch.sort(key, dim=1, stable=True)
+    spos = (skey & 0x1FFFF).to(torch.int32)
+    shash = skey >> 17
+    sval = skey != U32
+    sw0 = words.gather(1, perm)
+    sw4 = torch.roll(words, -4, dims=1).gather(1, perm)
+    screen_cap = torch.clamp(cap_at.gather(1, perm), max=8)
+    col = idx
+
+    best_screen = torch.full((NB, M), -1, dtype=torch.int32, device=dev)
+    best_j = torch.full((NB, M), -1, dtype=torch.int32, device=dev)
+    for kk in range(1, k + 1):
+        pp = torch.roll(spos, kk, dims=1)
+        ok = ((col >= kk) & (torch.roll(shash, kk, dims=1) == shash)
+              & torch.roll(sval, kk, dims=1) & sval & (spos - pp <= window))
+        z0 = _match_bytes_u32(sw0 ^ torch.roll(sw0, kk, dims=1))
+        z4 = _match_bytes_u32(sw4 ^ torch.roll(sw4, kk, dims=1))
+        s = torch.minimum(torch.where(z0 == 4, 4 + z4, z0), screen_cap)
+        s = torch.where(ok, s, -1)
+        better = s > best_screen  # strict: ties keep the more recent
+        best_screen = torch.where(better, s, best_screen)
+        best_j = torch.where(better, pp, best_j)
+
+    # Back to position order. Invalid entries (spos = 0x1FFFF, past every
+    # row since M < 2^17) go to a spare column and are dropped.
+    dest = torch.where(sval, spos.to(torch.int64), M)
+    out_j = torch.full((NB, M + 1), -1, dtype=torch.int32, device=dev)
+    out_s = torch.full((NB, M + 1), -1, dtype=torch.int32, device=dev)
+    out_j.scatter_(1, dest, best_j)
+    out_s.scatter_(1, dest, best_screen)
+    return out_j[:, :M], out_s[:, :M]
+
+
+def screen_candidates_w(words, span_off, span_len, k: int, window: int,
+                        block: int, max_match: int):
+    """The v1 screen over precomputed words [NB, M] int32: hash,
+    per-position caps, sorted-space candidate screening. Returns (best_j,
+    best_screen, words, cap_at), all [NB, M] int32 (block region at
+    columns [window, window + block)).
+
+    span_off [NB]: each block's offset in its buffer; span_len: scalar or
+    [NB] (per-block buffer lengths: blocks of different buffers share one
+    batch, and the insertable mask keeps their halos apart)."""
+    NB, M = words.shape
+    if M >= 1 << 17:
+        raise ValueError(f"v1 screen: M = {M} must be below 2^17 (the "
+                         "sort key holds the position in 17 bits)")
+    dev = words.device
+    slc = _span_len_col(span_len, NB, dev)
+    idx = torch.arange(M, device=dev, dtype=torch.int32).expand(NB, M)
+    gpos = span_off[:, None] + (idx - window)
+    insertable = (gpos >= 0) & (gpos + MIN_MATCH <= slc)
+    block_end_rel = torch.clamp(window + (slc - span_off[:, None]),
+                                max=block + window)
+    cap_at = torch.clamp(block_end_rel - idx, 0, max_match)
+    cap_at = torch.where(idx >= window, cap_at, 0).to(torch.int32)
+    bj, bs = best_candidate_sorted(hash3(words), insertable, words, cap_at,
+                                   k, window)
+    return bj, bs, words, cap_at
+
+
+def screen_candidates(data, span_off, span_len, k: int, window: int,
+                      block: int, max_match: int):
+    """screen_candidates_w on the 4-byte windows of byte data [NB, M]."""
+    return screen_candidates_w(words_at(data), span_off, span_len, k,
+                               window, block, max_match)

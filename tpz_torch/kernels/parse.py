@@ -1,6 +1,14 @@
-"""Spec-v3 parse walk: greedy/lazy LZSS parse with match extension (port
-of tpz/kernels/parse.py `_v3_marks`, `parse_extend_v3z`, and of the walk
-that `parse_extend_pallas_v3y` runs on the TPU).
+"""The parse walks: greedy/lazy LZSS parse with match extension (port of
+tpz/kernels/parse.py).
+
+Spec v1 (LZHUF encode; the walk `parse_extend_pallas` runs on the TPU):
+one walk per block from position 0, each token's length the winner
+candidate's match extended by 4-byte compares. `parse_extend_v1_plain` is
+the plain torch version, `parse_extend_v1` the wrapper (CUDA kernel
+`tpz_torch/csrc/parse_v1_walk.cu` on a card). See parse_extend_v1_plain.
+
+Spec v3 (DEFLATE encode; `_v3_marks`, `parse_extend_v3z`, and the walk
+that `parse_extend_pallas_v3y` runs on the TPU):
 
 Every `restart`-sized sub-range of a block is parsed by an independent
 state machine (a "sub-walk"). An unsaturated token's outcome is a pure
@@ -27,6 +35,8 @@ every position where a token starts, 0 elsewhere.
 from __future__ import annotations
 
 import torch
+
+from tpz_torch.utils.bits import U32
 
 RAW = 1 << 30
 SENT = 1 << 20
@@ -312,3 +322,129 @@ def parse_extend_v3(pk1, pk2, cap_at, words, block_len, window,
 
 
 parse_extend_v3.launches = 0
+
+
+# ------------------------------------------------------------ spec v1
+
+def parse_extend_v1_plain(screen, best_j, words, block_len, window: int,
+                          max_match: int = 258, too_far: int = 4096,
+                          lazy: bool = False):
+    """The plain version of the spec-v1 parse walk.
+
+    screen, best_j [NB, N] int32: the v1 screen's clamped 8-byte match
+    and winner M-index (-1 = none) at each block position; words [NB, M]
+    int32 4-byte windows (M-index = block position + window); block_len
+    [NB] int32. Returns (reach, mlen) [NB, N] int32: reach = len + 1 at
+    every position the walk visits, 0 elsewhere; mlen = max(reach - 1, 0).
+
+    The walk visits p, takes its length ln(p), and goes on at
+    p + max(ln(p), 1) until p >= N (past block_len too, as the reference
+    does). Every quantity of ln(p) depends on p alone, so the plain
+    version needs no token loop: it computes ln at every position (the
+    extension of saturated screens runs over those positions at once, at
+    most 64 word compares), applies the one-step lazy rule (a literal at
+    p when ln(p + 1) > ln(p)), and finds the visited positions by pointer
+    doubling over the steps, as the reference's `_parse_doubling`."""
+    NB, N = screen.shape
+    M = words.shape[1]
+    dev = screen.device
+    pos = torch.arange(N, device=dev, dtype=torch.int64)[None, :]
+    blen = block_len.to(torch.int64)[:, None]
+    # The reference packs the screen as clip(screen + 1, 0, 9).
+    s = (torch.clamp(screen + 1, 0, 9) - 1).to(torch.int64)
+    j = best_j.to(torch.int64)
+    cap = torch.clamp(blen - pos, max=max_match)
+    ln = s.clone()
+    ext = (s >= 3) & (s >= torch.clamp(cap, max=8))
+    rows, cols = torch.nonzero(ext, as_tuple=True)
+    if rows.numel():
+        # Extension: k starts at the screen and grows by the equal bytes of
+        # 4-byte compares until a mismatch or the cap.
+        wflat = words.reshape(-1).to(torch.int64)
+        base = rows * M
+        a0 = cols + window
+        jb = j[rows, cols]
+        k = s[rows, cols]
+        kcap = cap[rows, cols]
+        live = k < kcap
+        while bool(live.any()):
+            x = (wflat[base + torch.clamp(a0 + k, 0, M - 1)]
+                 ^ wflat[base + torch.clamp(jb + k, 0, M - 1)]) & U32
+            eq = (((x & 0xFF) == 0).to(torch.int64)
+                  + ((x & 0xFFFF) == 0).to(torch.int64)
+                  + ((x & 0xFFFFFF) == 0).to(torch.int64))
+            k = torch.where(live, torch.minimum(
+                k + torch.where(x == 0, 4, eq), kcap), k)
+            live = live & (x == 0) & (k < kcap)
+        ln[rows, cols] = torch.minimum(k, kcap)
+    ln = torch.where(s < 3, 0, ln)
+    dist = pos + window - j
+    ln = torch.where((ln == 3) & (dist > too_far), 0, ln)
+    ln = torch.where(j < 0, 0, ln)
+    if lazy:
+        nxt = torch.nn.functional.pad(ln[:, 1:], (0, 1))
+        ln = torch.where((ln > 0) & (pos + 1 < blen) & (nxt > ln), 0, ln)
+
+    visited = _reach_doubling(torch.clamp(ln, min=1))
+    reach = torch.where(visited, ln + 1, 0).to(torch.int32)
+    return reach, torch.clamp(reach - 1, min=0)
+
+
+def _reach_doubling(step: torch.Tensor) -> torch.Tensor:
+    """[NB, N] int64 steps >= 1 -> [NB, N] bool: the positions of the
+    chain 0 -> p + step(p) -> ... below N (the reference's
+    _parse_doubling: S_{r+1} = S_r | f_{2^r}(S_r), f_{2^{r+1}} = f_{2^r}
+    after itself)."""
+    NB, N = step.shape
+    pos = torch.arange(N, device=step.device, dtype=torch.int64)[None, :]
+    f = torch.cat([torch.clamp(pos + step, max=N),
+                   torch.full((NB, 1), N, dtype=torch.int64,
+                              device=step.device)], dim=1)
+    reach = torch.zeros((NB, N + 1), dtype=torch.int32, device=step.device)
+    reach[:, 0] = 1
+    for _ in range(N.bit_length()):
+        reach = reach.scatter_reduce(1, f, reach, reduce="amax")
+        f = f.gather(1, f)
+    return reach[:, :N] > 0
+
+
+def parse_extend_v1(screen, best_j, words, block_len, window: int,
+                    max_match: int = 258, too_far: int = 4096,
+                    lazy: bool = False):
+    """The spec-v1 parse walk: the plain version for CPU tensors, the
+    CUDA kernel (csrc/parse_v1_walk.cu, one thread per block) for CUDA
+    tensors. Arguments and results as parse_extend_v1_plain; all int32
+    and contiguous."""
+    if screen.device.type == "cpu":
+        return parse_extend_v1_plain(screen, best_j, words, block_len,
+                                     window, max_match, too_far, lazy)
+    if screen.device.type != "cuda":
+        raise ValueError(f"v1 parse walk: unsupported device {screen.device}")
+    NB, N = screen.shape
+    M = words.shape[1]
+    for name, t, shape in (("screen", screen, (NB, N)),
+                           ("best_j", best_j, (NB, N)),
+                           ("words", words, (NB, M)),
+                           ("block_len", block_len, (NB,))):
+        if (t.device != screen.device or t.dtype != torch.int32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"v1 parse walk: {name} must be a contiguous int32 tensor "
+                f"of shape {shape} on {screen.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    out = torch.zeros((NB, N), dtype=torch.int32, device=screen.device)
+    from tpz_torch.kernels import _build
+
+    with torch.cuda.device(screen.device):
+        rc = _build.lib().tpz_parse_v1_walk(
+            screen.data_ptr(), best_j.data_ptr(), words.data_ptr(),
+            block_len.data_ptr(), out.data_ptr(), NB, N, M, window,
+            max_match, too_far, int(lazy),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"v1 parse walk kernel launch failed: cudaError {rc}")
+    parse_extend_v1.launches += 1
+    return out, torch.clamp(out - 1, min=0)
+
+
+parse_extend_v1.launches = 0

@@ -1,13 +1,17 @@
 """The C++ oracle (`cpp/`), built privately and bound with ctypes.
 
-The encode path never calls it: the encoder is here for byte-identity
-checks (tests and `chip_smoke.py`). The decode path calls its host scans,
-as the reference does: the header scan and the segment indexer, which
-read block headers and cut streams without decoding their symbols, and
-the host inflate for the shapes the device path declines. `build()`
-compiles `cpp/*.cc` with g++ into `build/oracle/libtpz_oracle.so` and
-never writes into `cpp/`, so the
+The DEFLATE encode path never calls it: its encoder is here for
+byte-identity checks (tests and `chip_smoke.py`). The LZHUF encode path
+calls its host planner (`lzhuf_plan`: code lengths, canonical codes and
+block headers), as the reference does. The decode paths call its host
+scans, as the reference does: the DEFLATE header scan and segment
+indexer and the LZHUF token indexer, which read block headers and cut
+streams without writing output, and the host decoders for the shapes the
+device path declines. `build()` compiles `cpp/*.cc` with g++ into
+`build/oracle/libtpz_oracle.so` and never writes into `cpp/`, so the
 reference package's own build (`make -C cpp`) stays independent of it.
+The oracle's `generated_constants.h` is written from the port's own
+`tpz_torch/constants.py` (`write_constants_header`).
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ import sys
 
 import numpy as np
 
-from tpz_torch._shared import REPO_ROOT, errors
-from tpz_torch._shared import constants as C
+from tpz_torch import REPO_ROOT, errors
+from tpz_torch import constants as C
 from tpz_torch.utils.build import cached_build, inputs_key
 
 CPP_DIR = os.path.join(REPO_ROOT, "cpp")
@@ -31,15 +35,22 @@ _SOURCES = ("huffman.cc", "lzss.cc", "deflate.cc", "checksums.cc",
             "lzhuf.cc", "bzip2.cc", "capi.cc")
 _CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread")
 
-# cpp/gen_constants.py does `from tpz import constants`; run it with a
-# stub `tpz` package whose __path__ is the reference package directory, so
-# tpz/constants.py loads without tpz/__init__.py (which imports jax).
+CONSTANTS = os.path.join(REPO_ROOT, "tpz_torch", "constants.py")
+
+# cpp/gen_constants.py does `from tpz import constants`. It runs in a child
+# whose `tpz` is a stub module with one member, `constants`: the port's
+# tpz_torch/constants.py, registered as `tpz` and `tpz.constants`. The stub
+# has no __path__, so nothing can load from the reference package.
 _GEN_BOOT = r"""
-import os, runpy, sys, types
-gen, out, pkgdir = sys.argv[1:4]
+import importlib.util, runpy, sys, types
+gen, out, consts = sys.argv[1:4]
+spec = importlib.util.spec_from_file_location("tpz.constants", consts)
+C = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(C)
 pkg = types.ModuleType("tpz")
-pkg.__path__ = [pkgdir]
+pkg.constants = C
 sys.modules["tpz"] = pkg
+sys.modules["tpz.constants"] = C
 sys.argv = [gen, out]
 runpy.run_path(gen, run_name="__main__")
 """
@@ -56,8 +67,7 @@ def _inputs() -> list[str]:
 def build(out_dir: str = BUILD_DIR) -> str:
     """Build the oracle library unless it is current; returns its path."""
     key = inputs_key([*_inputs(), os.path.join(CPP_DIR, "gen_constants.py"),
-                      os.path.join(REPO_ROOT, "tpz", "constants.py")],
-                     *_CXXFLAGS)
+                      CONSTANTS], *_CXXFLAGS)
     return cached_build(out_dir, LIB_NAME, key,
                         lambda tmp: _compile(out_dir, tmp))
 
@@ -71,12 +81,7 @@ def _compile(out_dir: str, out_path: str) -> None:
     os.makedirs(src)
     for path in _inputs():
         shutil.copy(path, src)
-    subprocess.run(
-        [sys.executable, "-c", _GEN_BOOT,
-         os.path.join(CPP_DIR, "gen_constants.py"),
-         os.path.join(src, "generated_constants.h"),
-         os.path.join(REPO_ROOT, "tpz")],
-        check=True, capture_output=True)
+    write_constants_header(os.path.join(src, "generated_constants.h"))
     procs = [subprocess.Popen(
         ["g++", *_CXXFLAGS, "-c", "-o", os.path.join(src, s + ".o"),
          os.path.join(src, s)], stderr=subprocess.PIPE) for s in _SOURCES]
@@ -88,6 +93,14 @@ def _compile(out_dir: str, out_path: str) -> None:
         ["g++", *_CXXFLAGS, "-shared", "-o", out_path,
          *[os.path.join(src, s + ".o") for s in _SOURCES]],
         check=True, capture_output=True)
+
+
+def write_constants_header(out_path: str) -> None:
+    """Write the oracle's generated_constants.h from the port's
+    constants, with the reference's own generator (cpp/gen_constants.py)."""
+    subprocess.run([sys.executable, "-c", _GEN_BOOT,
+                    os.path.join(CPP_DIR, "gen_constants.py"), out_path,
+                    CONSTANTS], check=True, capture_output=True)
 
 
 def lib() -> ctypes.CDLL:
@@ -120,6 +133,22 @@ def lib() -> ctypes.CDLL:
         L.tpz_inflate_index.argtypes = [
             u8p, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, i64p, i64p, i64p, i64p, i32p, i32p, i64p, szp]
+        u16p = ctypes.POINTER(ctypes.c_uint16)
+        L.tpz_lzhuf_encode.restype = ctypes.c_int
+        L.tpz_lzhuf_encode.argtypes = [
+            u8p, ctypes.c_size_t, ctypes.c_int32, ctypes.c_int32, u8p, szp]
+        L.tpz_lzhuf_decode.restype = ctypes.c_int
+        L.tpz_lzhuf_decode.argtypes = [
+            u8p, ctypes.c_size_t, ctypes.c_int32, ctypes.c_size_t, u8p, szp]
+        L.tpz_lzhuf_index.restype = ctypes.c_int
+        L.tpz_lzhuf_index.argtypes = [
+            u8p, ctypes.c_size_t, ctypes.c_int32, ctypes.c_size_t,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, i64p, i64p,
+            i64p, i32p, i32p, i32p, u8p, u8p, i32p, i32p, i64p, i64p]
+        L.tpz_lzhuf_plan.restype = ctypes.c_int
+        L.tpz_lzhuf_plan.argtypes = [
+            u32p, u32p, u32p, ctypes.c_int32, ctypes.c_int32, i64p, i64p,
+            u8p, u16p, u8p, u16p, u8p, ctypes.c_size_t]
         _LIB = L
     return _LIB
 
@@ -295,3 +324,110 @@ def inflate(data, max_out: int | None = None) -> tuple[bytes, int]:
         errors.raise_for_status(st, "inflate")
         return out[:n.value].tobytes(), consumed.value
     errors.raise_for_status(errors.STATUS_BUFFER_TOO_SMALL, "inflate: output cap")
+
+
+# ------------------------------------------------------------------ LZHUF
+
+def _lzhuf_np(dict_bits: int) -> int:
+    return next(v[1] for v in C.LZHUF_METHODS.values() if v[0] == dict_bits)
+
+
+def lzhuf_encode(data, dict_bits: int = 13, max_chain: int = 16) -> bytes:
+    """Raw LHA lh4-lh7 stream (no size header; LHA archives carry the
+    original size externally, as does the container)."""
+    a = _u8(data)
+    cap = a.size + (a.size >> 2) + 4096
+    out = np.zeros(cap, dtype=np.uint8)
+    n = ctypes.c_size_t(cap)
+    st = lib().tpz_lzhuf_encode(_ptr(a, ctypes.c_uint8), a.size, dict_bits,
+                                max_chain, _ptr(out, ctypes.c_uint8),
+                                ctypes.byref(n))
+    errors.raise_for_status(st, "lzhuf_encode")
+    return out[: n.value].tobytes()
+
+
+def lzhuf_decode(data, orig_size: int, dict_bits: int = 13) -> bytes:
+    """Host decode of a raw lh4-lh7 stream of `orig_size` output bytes."""
+    a = _u8(data)
+    cap = orig_size + 16
+    out = np.zeros(cap, dtype=np.uint8)
+    n = ctypes.c_size_t(cap)
+    st = lib().tpz_lzhuf_decode(_ptr(a, ctypes.c_uint8), a.size, dict_bits,
+                                orig_size, _ptr(out, ctypes.c_uint8),
+                                ctypes.byref(n))
+    errors.raise_for_status(st, "lzhuf_decode")
+    return out[: n.value].tobytes()
+
+
+def lzhuf_index(data, orig_size: int, dict_bits: int,
+                seg_out: int = 1 << 16):
+    """Token-aligned segment index over an lzhuf body (cpp LzhufIndex):
+    one host token walk that writes no output. Returns per-segment arrays
+    (seg_bits, end_bits, out_lens, carry_len, carry_dist, block_ids) and
+    per-block code lengths and constant codes (c_lens [nblk, 510], p_lens
+    [nblk, 20], c_consts, p_consts; -1 = not constant), or None when the
+    stream does not fit the device path."""
+    a = _u8(data)
+    max_segs = max(8, 2 * (orig_size // seg_out) + 16)
+    max_blocks = max(8, orig_size // 4096 + 16)
+    i64 = {k: np.zeros(max_segs, np.int64)
+           for k in ("seg_bits", "end_bits", "out_lens")}
+    i32 = {k: np.zeros(max_segs, np.int32)
+           for k in ("carry_len", "carry_dist", "block_ids")}
+    clens = np.zeros((max_blocks, 510), np.uint8)
+    plens = np.zeros((max_blocks, 20), np.uint8)
+    ccon = np.zeros(max_blocks, np.int32)
+    pcon = np.zeros(max_blocks, np.int32)
+    nseg = np.zeros(1, np.int64)
+    nblk = np.zeros(1, np.int64)
+    st = lib().tpz_lzhuf_index(
+        _ptr(a, ctypes.c_uint8), a.size, dict_bits, orig_size, seg_out,
+        max_segs, max_blocks,
+        *[_ptr(v, ctypes.c_int64) for v in i64.values()],
+        *[_ptr(v, ctypes.c_int32) for v in i32.values()],
+        _ptr(clens, ctypes.c_uint8), _ptr(plens, ctypes.c_uint8),
+        _ptr(ccon, ctypes.c_int32), _ptr(pcon, ctypes.c_int32),
+        _ptr(nseg, ctypes.c_int64), _ptr(nblk, ctypes.c_int64))
+    if st != 0:
+        return None
+    ks, kb = int(nseg[0]), int(nblk[0])
+    idx = {name: v[:ks] for name, v in {**i64, **i32}.items()}
+    idx.update(c_lens=clens[:kb], p_lens=plens[:kb], c_consts=ccon[:kb],
+               p_consts=pcon[:kb])
+    return idx
+
+
+def lzhuf_plan(c_freq: np.ndarray, p_freq: np.ndarray,
+               token_counts: np.ndarray, dict_bits: int) -> dict:
+    """Host planning for the LZHUF encode pipeline (cpp LzhufPlan): per
+    block the c and p code lengths and canonical codes, the header bits
+    at absolute offsets, each block's body bit offset and the total.
+
+    c_freq [NB, 510] uint32, p_freq [NB, np] uint32 (padded rows fine),
+    token_counts [NB] uint32. p tables come back strided [NB, 20]."""
+    cf = np.ascontiguousarray(c_freq, dtype=np.uint32)
+    nb = cf.shape[0]
+    npad = np.zeros((nb, 20), dtype=np.uint32)
+    npad[:, : p_freq.shape[1]] = p_freq
+    # LzhufPlan reads p_freq rows with stride np: rebuild tight rows.
+    pf = np.ascontiguousarray(npad[:, :_lzhuf_np(dict_bits)])
+    tc = np.ascontiguousarray(token_counts, dtype=np.uint32)
+    body_off = np.zeros(nb, dtype=np.int64)
+    total_bits = np.zeros(1, dtype=np.int64)
+    c_len = np.zeros((nb, 510), dtype=np.uint8)
+    c_code = np.zeros((nb, 510), dtype=np.uint16)
+    p_len = np.zeros((nb, 20), dtype=np.uint8)
+    p_code = np.zeros((nb, 20), dtype=np.uint16)
+    cap = int(tc.sum()) * 8 + 512 * nb + 1024
+    header = np.zeros(cap, dtype=np.uint8)
+    st = lib().tpz_lzhuf_plan(
+        _ptr(cf, ctypes.c_uint32), _ptr(pf, ctypes.c_uint32),
+        _ptr(tc, ctypes.c_uint32), nb, dict_bits,
+        _ptr(body_off, ctypes.c_int64), _ptr(total_bits, ctypes.c_int64),
+        _ptr(c_len, ctypes.c_uint8), _ptr(c_code, ctypes.c_uint16),
+        _ptr(p_len, ctypes.c_uint8), _ptr(p_code, ctypes.c_uint16),
+        _ptr(header, ctypes.c_uint8), cap)
+    errors.raise_for_status(st, "lzhuf_plan")
+    return {"body_off": body_off, "total_bits": int(total_bits[0]),
+            "c_len": c_len, "c_code": c_code, "p_len": p_len,
+            "p_code": p_code, "header": header}
