@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the tpz_torch gzip and LZHUF encode and decode paths on
-one NVIDIA GPU.
+"""Smoke run of the tpz_torch gzip and LZHUF encode and decode paths and
+the bzip2 decode path on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -67,15 +67,37 @@ Phases (each prints one line; any failure raises and exits non-zero):
               time (the union of the kernel, memcpy and memset intervals
               inside the call), the device's idle share (1 - busy / wall)
               and the device ops that took the most time
+ 13. bzip2-kernels
+              the bzip2 symbol-walk kernel against its plain torch version
+              (exact records and meta) on small stdlib and oracle streams
+              at levels 1 and 9 and on a corrupted one; the iBWT kernels
+              against their plain version (exact bytes and flags) on those
+              blocks, a periodic block and the headline batch's last
+              columns (the 2 x 16 MiB corpus.mixed batch, oracle bzip2
+              level 9), all at the decode's splitter stride; both kernels
+              timed at the headline shape
+ 14. bzip2-slice
+              api.decompress_many on the headline blobs, api.decompress on
+              a 16 MiB stdlib bz2 level 9 stream and on a two-stream
+              concatenation, device "cuda": every output equals its input,
+              each path (counts set to 0 just before it) one dispatch that
+              launched each kernel once, nothing sent to decompress's
+              second route (host symbol decode) or the host decoder
+ 15. bzip2-timing
+              warm median of 3 decompress_many calls on the headline blobs
+              (MB/s of plaintext), a per-stage split from CUDA events, and
+              one call under torch.profiler (device busy time and idle
+              share, as phase 12)
 A JSON record of the kernels (launches from each one's main-path call:
-gzip encode, gzip decode, lh5 encode, lh5 decode; times and bounds at
-the headline shapes) comes before the card's name and power limit; the
-last line is {"ok": true, "device": {...}}. Needs the repository checkout
-around it.
+gzip encode, gzip decode, lh5 encode, lh5 decode, bzip2 decode; times
+and bounds at the headline shapes) comes before the card's name and power
+limit; the last line is {"ok": true, "device": {...}}. Needs the
+repository checkout around it.
 """
 
 from __future__ import annotations
 
+import bz2
 import gzip
 import json
 import multiprocessing
@@ -119,6 +141,11 @@ OPS_V1_EXTEND = 16         # ... one 4-byte extension compare
 OPS_V3_TOKEN = 15          # parse_walk.cu: a token on the mark fast path
 OPS_COPY_POSITION = 16     # resolve_walk.cu: window state + phase 2 check
 OPS_COPY_MATCHED = 12      # ... phase 1's copy of one matched position
+OPS_BZIP2_TRIP = 60        # bzip2_walk.cu: one trip (a symbol, or a held one)
+OPS_BZIP2_MTF = 24         # ... a move-to-front and its record
+OPS_IBWT_STEP = 17         # ibwt_walk.cu: a node in pass 1 and in pass 2
+OPS_IBWT_CHAIN = 45        # ... a chain's set-up in both passes and stitch
+BZIP2_LEVEL = 9
 
 
 def _mixed(args):
@@ -269,7 +296,13 @@ def walk_ops(markers, staged, literal, match) -> int:
 def bound(tensors, ops) -> dict:
     """bound_ms and bound_by for a kernel call that reads or writes each
     of `tensors` once and does `ops` operations."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return bound_bytes_ops(sum(t.numel() * t.element_size()
+                               for t in tensors), ops)
+
+
+def bound_bytes_ops(nbytes, ops) -> dict:
+    """bound_ms and bound_by for a kernel call that moves `nbytes` and
+    does `ops` operations."""
     ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     ms_ops = ops / INT_OPS_PER_S * 1e3
     return {"bound_ms": max(ms_bytes, ms_ops),
@@ -840,7 +873,7 @@ def device_busy(events, t0_us: float, t1_us: float):
     return busy / 1e3, by_name
 
 
-def profile_call(fn, label: str) -> None:
+def profile_call(fn, label: str, phase: str = "lzhuf-profile") -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -863,7 +896,7 @@ def profile_call(fn, label: str) -> None:
     if busy_ms <= 0:
         raise RuntimeError(f"{label}: the trace holds no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log("lzhuf-profile", call=label, wall_ms=f"{wall_ms:.2f}",
+    log(phase, call=label, wall_ms=f"{wall_ms:.2f}",
         busy_ms=f"{busy_ms:.2f}", idle_share=f"{1 - busy_ms / wall_ms:.4f}",
         top=json.dumps({k[:60]: round(v, 3) for k, v in top}))
 
@@ -877,6 +910,259 @@ def phase_lzhuf_profile(batch, blobs) -> None:
     profile_call(lambda: api.decompress_many(blobs, LZHUF_METHOD,
                                              device="cuda"),
                  f"{LZHUF_METHOD}-decode")
+
+
+def bzip2_layout(blobs):
+    """The walk's device layout of the blocks of `blobs`, as the bzip2
+    decode pipeline's host stages build it for one level bucket: (tensors
+    on the card, N, S)."""
+    from tpz_torch import oracle
+    from tpz_torch.kernels import bzip2_pipeline as bp
+    from tpz_torch.kernels import bzip2_walk as bw
+
+    level = max(bp._max_level(b) for b in blobs)
+    N = bp._bucket(bw.rec_cap_for(level))
+    scan, slices = bp.group_inputs(
+        blobs, [oracle.bzip2_scan_headers(b) for b in blobs], N)
+    t = {k: torch.from_numpy(v).cuda()
+         for k, v in bw.block_layout(scan, slices).items()}
+    return t, N, bw.records_cap(N, bw.rec_cap_for(level))
+
+
+def compare_bzip2_walk(t, S):
+    """bzip2 symbol-walk kernel vs plain on the same CUDA tensors: (recs,
+    meta, max abs difference, kernel ms, plain ms), each timed on its
+    first call. Raises unless records and meta are equal."""
+    from tpz_torch.kernels import bzip2_walk as bw
+
+    args = [t[k] for k in bw.WALK_ARGS]
+    before = bw.bzip2_walk.launches
+    (recs, meta), ms = timed(lambda: bw.bzip2_walk(*args, S))
+    if bw.bzip2_walk.launches != before + 1:
+        raise RuntimeError("bzip2 walk wrapper did not launch its kernel")
+    (precs, pmeta), plain_ms = timed(lambda: bw.bzip2_walk_plain(*args, S))
+    err = max(int((recs.long() - precs.long()).abs().max()),
+              int((meta.long() - pmeta.long()).abs().max()))
+    if err:
+        raise RuntimeError(f"bzip2-walk kernel disagrees with plain: {err}")
+    return recs, meta, err, ms, plain_ms
+
+
+def ibwt_inputs(t, recs, meta, N):
+    """The iBWT walk's (w, start_g, length) from the symbol walk's output,
+    through the decode's own expansion and LF sort."""
+    from tpz_torch.kernels import bzip2_walk as bw
+    from tpz_torch.kernels import ibwt_walk as iw
+
+    last, lens, _, orig = bw.expand_records(recs, meta, t["origs"], N)
+    return iw.lf_inputs(last, lens, orig)[:3]
+
+
+def compare_ibwt(args, seg):
+    """iBWT kernels vs plain on the same CUDA tensors: (out, flag, max abs
+    difference, kernel ms, plain ms), each timed on its first call.
+    Raises unless bytes and flags are equal."""
+    from tpz_torch.kernels import ibwt_walk as iw
+
+    before = iw.ibwt.launches
+    (out, flag), ms = timed(lambda: iw.ibwt(*args, seg))
+    if iw.ibwt.launches != before + 1:
+        raise RuntimeError("ibwt wrapper did not launch its kernels")
+    (pout, pflag), plain_ms = timed(lambda: iw.ibwt_walk_plain(*args, seg))
+    err = max(int((out.int() - pout.int()).abs().max()),
+              int((flag - pflag).abs().max()))
+    if err:
+        raise RuntimeError(f"ibwt kernels disagree with plain: {err}")
+    return out, flag, err, ms, plain_ms
+
+
+def bzip2_walk_ops(recs, meta) -> int:
+    """The symbol walk's operations on its records: a trip per record,
+    per run symbol of a run record (count >= 2: floor(log2(count + 1))
+    symbols) and per block's end, and a move-to-front per count-1 record
+    (a count-1 run record counts as a literal, so the bound stays a least
+    time)."""
+    live = torch.arange(recs.shape[1], device=recs.device)[None, :] \
+        < meta[:, :1]
+    cnt = torch.where(live, recs.long() >> 8, 0)
+    runs = torch.where(cnt >= 2, torch.floor(torch.log2(
+        (cnt + 1).double())).long(), 0)
+    trips = int(meta[:, 0].sum()) + int(runs.sum()) + recs.shape[0]
+    return trips * OPS_BZIP2_TRIP + int((cnt == 1).sum()) * OPS_BZIP2_MTF
+
+
+def phase_bzip2_kernels(small, blobs):
+    """#6 and #7 against their plain versions on the small streams, a
+    periodic block and (the iBWT) the headline batch; both timed at the
+    headline shape. Returns their kernel-line rows."""
+    from tpz_torch import oracle
+    from tpz_torch.kernels import bzip2_walk as bw
+    from tpz_torch.kernels import ibwt_walk as iw
+
+    err_w = err_i = 0
+    walk_plain_ms = walk_plain_at = None
+    for name, blob in small.items():
+        t, N, S = bzip2_layout([blob])
+        recs, meta, e, _, plain_ms = compare_bzip2_walk(t, S)
+        err_w = max(err_w, e)
+        if walk_plain_ms is None or plain_ms > walk_plain_ms:
+            walk_plain_ms, walk_plain_at = plain_ms, name
+        kv = {}
+        if int(meta[:, 1].abs().sum()) == 0:
+            args = ibwt_inputs(t, recs, meta, N)
+            _, flag, e, _, _ = compare_ibwt(args, iw.IBWT_SEG)
+            err_i = max(err_i, e)
+            kv = {"ibwt_max_abs_err": err_i, "flags": flag.tolist()}
+        log("bzip2-kernels", input=name, blocks=t["sw"].shape[0],
+            records=meta[:, 0].tolist(), err=meta[:, 1].tolist(),
+            walk_max_abs_err=err_w, plain_ms=f"{plain_ms:.1f}", **kv)
+    # A periodic block: the LF map splits into cycles, both flag it.
+    t, N, S = bzip2_layout([oracle.bzip2_encode(b"abc" * 4000, 1)])
+    recs, meta, _, _, _ = compare_bzip2_walk(t, S)
+    _, flag, e, _, _ = compare_ibwt(ibwt_inputs(t, recs, meta, N),
+                                    iw.IBWT_SEG)
+    if flag.tolist() != [1]:
+        raise RuntimeError(f"periodic block not flagged: {flag.tolist()}")
+    log("bzip2-kernels", input="periodic-abc", ibwt_max_abs_err=e,
+        flags=flag.tolist())
+
+    t, N, S = bzip2_layout(blobs)
+    args = [t[k] for k in bw.WALK_ARGS]
+    (recs, meta), cold_ms = timed(lambda: bw.bzip2_walk(*args, S))
+    _, walk_ms = timed(lambda: bw.bzip2_walk(*args, S), 5)
+    if int(meta[:, 1].abs().sum()):
+        raise RuntimeError(f"headline walk errors: {meta[:, 1].tolist()}")
+    nrec = meta[:, 0].long()
+    slice_bytes = int(((meta[:, 2].long() + 7) // 8).sum())
+    walk_bytes = (slice_bytes + int(nrec.sum()) * 4
+                  + sum(args[k].numel() * args[k].element_size()
+                        for k in (0, 1, 2, 4, 5, 6)) + meta.numel() * 4)
+    walk_bound = bound_bytes_ops(walk_bytes, bzip2_walk_ops(recs, meta))
+    log("bzip2-kernels", input="headline-2x16MiB-l9", blocks=len(nrec),
+        N=N, S=S, records=int(nrec.sum()), records_max=int(nrec.max()),
+        walk_ms=f"{walk_ms:.3f}",
+        walk_first_call_ms=f"{cold_ms:.3f}",
+        walk_plain_ms=f"{walk_plain_ms:.3f}",
+        walk_plain_shape=walk_plain_at,
+        walk_bound_ms=f"{walk_bound['bound_ms']:.4f}")
+
+    args = ibwt_inputs(t, recs, meta, N)
+    del recs, t
+    seg = iw.IBWT_SEG
+    _, flag, e, cold_ms, ibwt_plain_ms = compare_ibwt(args, seg)
+    err_i = max(err_i, e)
+    if int(flag.sum()):
+        raise RuntimeError(f"headline blocks flagged: {flag.tolist()}")
+    _, ibwt_ms = timed(lambda: iw.ibwt(*args, seg), 5)
+    n = int(args[2].long().sum())
+    chains = int(flag.numel()) * iw.chains_per_block(N, seg)
+    ibwt_bound = bound_bytes_ops(
+        n * 5 + chains * 12 + 8 * flag.numel(),
+        n * OPS_IBWT_STEP + chains * OPS_IBWT_CHAIN)
+    log("bzip2-kernels", input="headline-2x16MiB-l9", nodes=n,
+        seg=seg, ibwt_max_abs_err=err_i,
+        ibwt_first_call_ms=f"{cold_ms:.3f}",
+        ibwt_plain_ms=f"{ibwt_plain_ms:.3f}", ibwt_ms=f"{ibwt_ms:.3f}",
+        ibwt_bound_ms=f"{ibwt_bound['bound_ms']:.4f}")
+    return ({"max_abs_err": err_w, "ms": walk_ms, "plain_ms": walk_plain_ms,
+             **walk_bound},
+            {"max_abs_err": err_i, "ms": ibwt_ms,
+             "plain_ms": ibwt_plain_ms, **ibwt_bound})
+
+
+def drive_bzip2(path, fn, want):
+    """One bzip2 decode path with both kernels' counts set to 0 just
+    before it and read just after; raises unless it returns `want` from
+    one dispatch (each kernel launched once: a walk whose result was
+    refused would send the stream on to a second iBWT, or to the host)
+    with nothing sent to decompress's second route or the host decoder.
+    Returns its counts."""
+    from tpz_torch.kernels import bzip2_pipeline as bp
+    from tpz_torch.kernels import bzip2_walk as bw
+    from tpz_torch.kernels import ibwt_walk as iw
+
+    host = bp.host_declines, bp.host_symbol_decodes
+    out, dt, launches = drive("bzip2-slice", path, fn, {
+        "walk": bw.bzip2_walk, "ibwt": iw.ibwt})
+    if out != want:
+        raise RuntimeError(f"{path}: decode did not return its input")
+    if (bp.host_declines, bp.host_symbol_decodes) != host:
+        raise RuntimeError(f"{path}: decode left the device walk (host "
+                           f"declines, second route: {host} -> "
+                           f"{(bp.host_declines, bp.host_symbol_decodes)})")
+    if launches != {"walk": 1, "ibwt": 1}:
+        raise RuntimeError(f"{path}: not one launch of each kernel: "
+                           f"{launches}")
+    log("bzip2-slice", path=path, cold_s=f"{dt:.3f}",
+        walk_launches=launches["walk"], ibwt_launches=launches["ibwt"],
+        host_declines=0, host_symbol_decodes=0, identical=True)
+    return launches
+
+
+def phase_bzip2_slice(batch, blobs, stdlib_blob, cat, cat_want):
+    """The bzip2 decode main path and two other entry paths, each with
+    launch counts of its own; returns the headline batch's counts."""
+    from tpz_torch import api
+
+    launches = drive_bzip2(
+        "batch-2x16MiB-oracle-l9",
+        lambda: api.decompress_many(blobs, "bzip2", device="cuda"), batch)
+    drive_bzip2("stdlib-bz2-l9-16MiB",
+                lambda: api.decompress(stdlib_blob, "bzip2", device="cuda"),
+                batch[1])
+    drive_bzip2("two-stream-concat",
+                lambda: api.decompress(cat, "bzip2", device="cuda"), cat_want)
+    return launches
+
+
+def phase_bzip2_timing(batch, blobs, smi) -> None:
+    from tpz_torch import api
+    from tpz_torch.codecs import bzip2
+
+    total = sum(len(d) for d in batch)
+    median, times = warm_median(lambda _: api.decompress_many(
+        blobs, "bzip2", device="cuda"), range(TIMING_ITERS))
+    log("bzip2-timing", mb_per_s=f"{total / median / 1e6:.2f}",
+        median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
+        card=f"'{smi}'")
+    split = stage_split(lambda hook: bzip2.decompress_many(
+        blobs, device="cuda", stage_hook=hook))
+    log("bzip2-timing", **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
+    profile_call(lambda: api.decompress_many(blobs, "bzip2", device="cuda"),
+                 "bzip2-decode", phase="bzip2-timing")
+
+
+def bzip2_inputs(batch):
+    """The bzip2 phases' streams: the headline batch at oracle level 9, a
+    16 MiB stdlib level-9 stream, a two-stream concatenation (stdlib level
+    1 then oracle level 9) and the small streams of phase 13 (about 5,000
+    symbols a block: the plain walk takes one trip per symbol, about 2 ms
+    each on the card), one with zeroed symbol bits."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpz_torch import oracle
+    from tpz_torch.utils import corpus
+
+    with ThreadPoolExecutor(len(batch) + 1) as pool:
+        stdlib = pool.submit(bz2.compress, batch[1], BZIP2_LEVEL)
+        blobs = list(pool.map(lambda d: oracle.bzip2_encode(d, BZIP2_LEVEL),
+                              batch))
+        stdlib = stdlib.result()
+    a, b = corpus.text(MIB, seed=31), corpus.mixed(MIB, seed=32)
+    cat = (bz2.compress(a, 1) + oracle.bzip2_encode(b, BZIP2_LEVEL), a + b)
+    # Zeroed symbol bits decode as a run that outgrows 2^21 (err 8).
+    corrupt = bytearray(bz2.compress(corpus.text(8192, seed=25), 1))
+    corrupt[1000:1100] = bytes(100)
+    small = {
+        "stdlib-l1-text-8KiB": bz2.compress(corpus.text(8192, seed=21), 1),
+        "stdlib-l9-mixed-8KiB": bz2.compress(corpus.mixed(8192, seed=22), 9),
+        "oracle-l1-two-streams": oracle.bzip2_encode(
+            corpus.text(5000, seed=23), 1) + oracle.bzip2_encode(
+            corpus.mixed(5000, seed=26), 1),
+        "oracle-l9-text-8KiB": oracle.bzip2_encode(
+            corpus.text(8192, seed=24), 9),
+        "corrupt-stdlib-l1-text-8KiB": bytes(corrupt)}
+    return blobs, stdlib, cat, small
 
 
 def main() -> int:
@@ -910,8 +1196,14 @@ def main() -> int:
     lz_blobs, lz = phase_lzhuf_slice(batches[0], small["mixed"])
     phase_lzhuf_timing(batches[1:], batches[0], lz_blobs, smi)
     phase_lzhuf_profile(batches[0], lz_blobs)
+    del lz_blobs
+    bz_blobs, stdlib_blob, cat, small_bz = bzip2_inputs(batches[0])
+    bz_walk, bz_ibwt = phase_bzip2_kernels(small_bz, bz_blobs)
+    bz = phase_bzip2_slice(batches[0], bz_blobs, stdlib_blob, *cat)
+    phase_bzip2_timing(batches[0], bz_blobs, smi)
     # Each kernel's launches come from its own main-path call: gzip encode
-    # (#1), gzip decode (#2, #3), lh5 encode (#4), lh5 decode (#5).
+    # (#1), gzip decode (#2, #3), lh5 encode (#4), lh5 decode (#5), bzip2
+    # decode (#6, #7).
     rows = [("parse_walk_v3", "parse_walk.cu", "tpz/kernels/parse.py:464",
              launches, kern),
             ("symbol_walk", "symbol_walk.cu",
@@ -921,7 +1213,11 @@ def main() -> int:
             ("parse_walk_v1", "parse_v1_walk.cu", "tpz/kernels/parse.py:71",
              lz["parse_v1"], parse_v1),
             ("lzhuf_walk", "lzhuf_walk.cu", "tpz/kernels/lzhuf_walk.py:93",
-             lz["walk"], lz_walk)]
+             lz["walk"], lz_walk),
+            ("bzip2_walk", "bzip2_walk.cu", "tpz/kernels/bzip2_walk.py:334",
+             bz["walk"], bz_walk),
+            ("ibwt_walk", "ibwt_walk.cu", "tpz/kernels/ibwt_walk.py:150",
+             bz["ibwt"], bz_ibwt)]
     # None of these walks has one PyTorch call that computes its function.
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"tpz_torch/csrc/{src}",

@@ -101,7 +101,8 @@ def test_gzip_header_matches_reference():
 def test_port_never_imports_jax():
     code = ("import sys, tpz_torch, tpz_torch.api, tpz_torch.kernels.parse, "
             "tpz_torch.kernels._build, tpz_torch.oracle, "
-            "tpz_torch.kernels.deflate_pipeline; "
+            "tpz_torch.kernels.deflate_pipeline, "
+            "tpz_torch.kernels.bzip2_pipeline, tpz_torch.codecs.bzip2; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'tpz' or m.startswith('tpz.') "
             "for m in sys.modules), 'reference package imported'")
@@ -122,13 +123,43 @@ def test_unknown_format_raises():
 
 
 def test_oversized_single_buffer_raises(monkeypatch):
-    big = bytes(deflate_pipeline.MAX_DEVICE_SPAN + 1)
-    with pytest.raises(ValueError, match="oracle"):
-        api.compress(big, "gzip", device="cpu")
+    """A single buffer above MAX_DEVICE_SPAN used to raise; now, as in the
+    reference, the oracle encodes it, each such buffer counts one host
+    decline, and the rest of the batch stays on the device path."""
     monkeypatch.setattr(deflate_pipeline, "MAX_DEVICE_SPAN", 100_000)
-    with pytest.raises(ValueError, match="oracle"):
-        api.compress_many([b"a" * 10, b"b" * 100_001], "deflate",
-                          device="cpu")
+    datas = [b"a" * 10, corpus.text(100_001, seed=5), b""]
+    before = deflate_pipeline.host_declines
+    out = api.compress_many(datas, "deflate", 6, device="cpu")
+    assert out == [_oracle(d, 6) for d in datas]
+    assert deflate_pipeline.host_declines == before + 1
+    blob, ends, lens = deflate_pipeline.compress_indexed(
+        datas[1], DeflateConfig(6), "cpu")
+    assert (blob, ends, lens) == (_oracle(datas[1], 6), None, None)
+    assert deflate_pipeline.host_declines == before + 2
+
+
+def test_gzip_above_32_mib_encodes_as_the_reference():
+    """33 MiB in one buffer, beside a small one and alone: the member's
+    body is the oracle's stream, a member without a block index carries
+    no TZ extra (as tpz/codecs/gzip_codec.py writes it), and stdlib gzip
+    round-trips every buffer."""
+    big = b"tpz-torch" * ((33 << 20) // 9 + 1)
+    small = corpus.text(20_000, seed=6)
+    assert len(big) > deflate_pipeline.MAX_DEVICE_SPAN
+    before = deflate_pipeline.host_declines
+    out = api.compress_many([big, small], "gzip", device="cpu")
+    assert deflate_pipeline.host_declines == before + 1
+    ref_body = _oracle(big, 6)
+    hdr = gzip_codec.header_bytes(6)
+    assert out[0] == hdr + ref_body + gzip_codec._trailer(big)
+    assert gzip.decompress(out[0]) == big
+    assert gzip.decompress(out[1]) == small
+    single = api.compress(big, "gzip", device="cpu")
+    assert deflate_pipeline.host_declines == before + 2
+    pos, extra = jgzip.parse_header_extra(single, 0)
+    assert extra == b"" and single[:pos] == jgzip.header_bytes(6)
+    assert single[pos:-8] == ref_body
+    assert gzip.decompress(single) == big
 
 
 def test_oversized_batch_splits_into_groups(monkeypatch):

@@ -77,17 +77,22 @@ def test_generated_header_equals_the_reference_generators(tmp_path):
 
 
 def test_port_loads_nothing_from_the_reference_package():
-    """A fresh interpreter imports the port's api, builds and loads its
-    oracle and encodes and decodes on the CPU: jax stays unloaded and no
-    loaded module's file lies under tpz/."""
+    """A fresh interpreter imports the port's api and its bzip2 decode
+    modules, builds and loads its oracle, encodes and decodes LZHUF and
+    decodes a bzip2 stream on the CPU: jax stays unloaded and no loaded
+    module's file lies under tpz/."""
     oracle.build()  # so the child only loads it
     code = (
-        "import json, os, sys\n"
+        "import bz2, json, os, sys\n"
         "import tpz_torch.api as api\n"
+        "import tpz_torch.codecs.bzip2, tpz_torch.kernels.bzip2_pipeline\n"
+        "import tpz_torch.kernels.bzip2_walk, tpz_torch.kernels.ibwt_walk\n"
         "from tpz_torch import REPO_ROOT, oracle\n"
         "oracle.lib()\n"
         "blob = api.compress(b'abc' * 100, 'lh5', device='cpu')\n"
         "assert api.decompress(blob, 'lh5', device='cpu') == b'abc' * 100\n"
+        "bz = bz2.compress(b'tpz bzip2', 1)\n"
+        "assert api.decompress(bz, 'bzip2', device='cpu') == b'tpz bzip2'\n"
         "ref = os.path.join(REPO_ROOT, 'tpz') + os.sep\n"
         "bad = sorted(n for n, m in list(sys.modules.items())\n"
         "             if (getattr(m, '__file__', None) or '').startswith(ref))\n"
@@ -105,7 +110,10 @@ def test_port_loads_nothing_from_the_reference_package():
     lambda: api.compress_many([b"abc"], "lh5"),
     lambda: api.decompress(b"\x1f\x8b", "gzip"),
     lambda: api.decompress_many([b"TPZLlh7" + bytes(8)], "lh7"),
-], ids=["compress", "compress_many", "decompress", "decompress_many"])
+    lambda: api.decompress(b"BZh9", "bzip2"),
+    lambda: api.decompress_many([b"BZh9"], "bzip2"),
+], ids=["compress", "compress_many", "decompress", "decompress_many",
+        "bzip2-decompress", "bzip2-decompress_many"])
 def test_entry_points_default_to_the_card(call):
     """The entry points run on the card unless the caller asks for the
     CPU; with no card they raise instead of running elsewhere."""

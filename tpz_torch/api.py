@@ -1,14 +1,15 @@
 """Public entry points of the port: whole-buffer and batched encode and
-decode for "gzip", "deflate", "zlib" and the LZHUF methods "lh4"-"lh7".
-They run on the card (`device="cuda"`) unless the caller asks for the CPU
-(`device="cpu"`); "cuda" without a card raises."""
+decode for "gzip", "deflate", "zlib" and the LZHUF methods "lh4"-"lh7",
+and decode for "bzip2" (its encode is not ported yet and raises as an
+unsupported format). They run on the card (`device="cuda"`) unless the
+caller asks for the CPU (`device="cpu"`); "cuda" without a card raises."""
 
 from __future__ import annotations
 
 import functools
 
 from tpz_torch import constants as C
-from tpz_torch.codecs import deflate, gzip_codec, lzhuf, zlib_codec
+from tpz_torch.codecs import bzip2, deflate, gzip_codec, lzhuf, zlib_codec
 
 # Each entry is called as fn(data(s), level, device=...) to encode and
 # fn(data(s), device=...) to decode. The LZHUF entries bind their method
@@ -19,8 +20,9 @@ _COMPRESS_MANY = {"gzip": gzip_codec.compress_many,
                   "deflate": deflate.compress_many,
                   "zlib": zlib_codec.compress_many}
 _DECOMPRESS = {"gzip": gzip_codec.decompress, "deflate": deflate.decompress,
-               "zlib": zlib_codec.decompress}
-_DECOMPRESS_MANY = {"gzip": gzip_codec.decompress_many}
+               "zlib": zlib_codec.decompress, "bzip2": bzip2.decompress}
+_DECOMPRESS_MANY = {"gzip": gzip_codec.decompress_many,
+                    "bzip2": bzip2.decompress_many}
 for _m in sorted(C.LZHUF_METHODS):
     _COMPRESS[_m] = (lambda data, level, *, device, _m=_m:
                      lzhuf.compress(data, _m, device=device))
@@ -57,8 +59,9 @@ def decompress(data: bytes, format: str = "gzip", *, device="cuda") -> bytes:
 def decompress_many(datas, format: str = "gzip", *,
                     device="cuda") -> list[bytes]:
     """Batch decode: gzip puts every TZ-indexed member of every buffer in
-    one device batch, and the LZHUF methods every buffer's segments; other
-    formats decode per buffer."""
+    one device batch, the LZHUF methods every buffer's segments and bzip2
+    every stream's blocks of one level bucket; other formats decode per
+    buffer."""
     fn = _lookup(_DECOMPRESS, format)
     if format in _DECOMPRESS_MANY:
         return _DECOMPRESS_MANY[format](datas, device=device)

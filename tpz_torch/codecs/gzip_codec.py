@@ -54,11 +54,13 @@ def _trailer(data: bytes) -> bytes:
 def compress(data: bytes, level: int = 6, *, device="cuda", mtime: int = 0,
              index: bool = True) -> bytes:
     """One gzip member; with `index`, the 'TZ' block index rides in
-    FEXTRA when it fits."""
+    FEXTRA when it fits. A buffer the host encodes (above
+    MAX_DEVICE_SPAN) has no index, so its member carries no TZ extra."""
     body, block_bits, block_lens = deflate.compress_indexed(
         data, level=level, device=device)
     extra = b""
-    if index and len(block_bits) <= _TZ_MAX_BLOCKS:
+    if (index and block_bits is not None
+            and len(block_bits) <= _TZ_MAX_BLOCKS):
         extra = _tz_extra(block_bits, block_lens)
     return header_bytes(level, mtime, extra) + body + _trailer(data)
 

@@ -80,5 +80,9 @@ def lib() -> ctypes.CDLL:
         L.tpz_parse_v1_walk.argtypes = [vp] * 5 + [ci] * 7 + [vp]
         L.tpz_lzhuf_walk.restype = ci
         L.tpz_lzhuf_walk.argtypes = [vp] * 6 + [ci] * 2 + [vp]
+        L.tpz_bzip2_walk.restype = ci
+        L.tpz_bzip2_walk.argtypes = [vp] * 9 + [ci] * 3 + [vp]
+        L.tpz_ibwt_walk.restype = ci
+        L.tpz_ibwt_walk.argtypes = [vp] * 6 + [ci] * 4 + [vp]
         _LIB = L
     return _LIB

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpz_torch import oracle
 from tpz_torch.kernels import bitpack
 from tpz_torch.kernels.deflate_plan_device import plan_device, plan_tables
 from tpz_torch.kernels.matchfinder import (BLOCK, FWD_PAD, MAX_MATCH, TOO_FAR,
@@ -28,12 +29,26 @@ from tpz_torch.utils.bits import to_i32
 
 # Largest batch one invocation encodes; bigger batches split into groups.
 # A single buffer cannot split mid-stream (later blocks' bit offsets
-# depend on earlier output), so one above this raises.
+# depend on earlier output), so one above this is encoded by the C++
+# oracle, whose bytes equal this pipeline's by construction, as the
+# reference does; each such buffer is counted in host_declines.
 MAX_DEVICE_SPAN = 32 << 20
 SCREEN_CHUNK = 64      # screen rows per sort, bounding its working set
 PARSE_GROUP = 16       # blocks per plain-parse loop (CPU tensors only)
 # Raw DEFLATE of b"": one fixed-Huffman block holding only end-of-block.
 EMPTY_STREAM = b"\x03\x00"
+
+# Buffers encoded on the host because they exceed MAX_DEVICE_SPAN.
+host_declines = 0
+
+
+def _host_encode(data: bytes, cfg, want_index: bool):
+    """The oracle's stream for a buffer above MAX_DEVICE_SPAN; with
+    want_index, (stream, None, None): it carries no block index."""
+    global host_declines
+    host_declines += 1
+    blob = oracle.deflate_encode(data, cfg.params_array())
+    return (blob, None, None) if want_index else blob
 
 
 def _make_words(span_u8: torch.Tensor) -> torch.Tensor:
@@ -186,13 +201,10 @@ def compress_many(datas, cfg, device, want_index: bool = False,
         return results
 
     if sum(len(datas[i]) for i in idxs) > MAX_DEVICE_SPAN:
-        for i in idxs:
+        for i in list(idxs):
             if len(datas[i]) > MAX_DEVICE_SPAN:
-                raise ValueError(
-                    f"buffer {i} holds {len(datas[i])} bytes, above "
-                    f"MAX_DEVICE_SPAN ({MAX_DEVICE_SPAN}); a single stream "
-                    "cannot be split across invocations, so encode it with "
-                    "the C++ oracle backend (tpz_torch.oracle.deflate_encode)")
+                results[i] = _host_encode(datas[i], cfg, want_index)
+                idxs.remove(i)
         group, group_bytes = [], 0
         for i in idxs + [None]:
             if group and (i is None

@@ -1,15 +1,18 @@
 """The C++ oracle (`cpp/`), built privately and bound with ctypes.
 
-The DEFLATE encode path never calls it: its encoder is here for
-byte-identity checks (tests and `chip_smoke.py`). The LZHUF encode path
-calls its host planner (`lzhuf_plan`: code lengths, canonical codes and
-block headers), as the reference does. The decode paths call its host
-scans, as the reference does: the DEFLATE header scan and segment
-indexer and the LZHUF token indexer, which read block headers and cut
-streams without writing output, and the host decoders for the shapes the
-device path declines. `build()` compiles `cpp/*.cc` with g++ into
-`build/oracle/libtpz_oracle.so` and never writes into `cpp/`, so the
-reference package's own build (`make -C cpp`) stays independent of it.
+The DEFLATE encode path calls its encoder only for a buffer above
+MAX_DEVICE_SPAN, as the reference does; otherwise that encoder is here
+for byte-identity checks (tests and `chip_smoke.py`). The LZHUF encode
+path calls its host planner (`lzhuf_plan`: code lengths, canonical codes
+and block headers), as the reference does. The decode paths call its
+host scans, as the reference does: the DEFLATE header scan and segment
+indexer, the LZHUF token indexer and the bzip2 header scan, which read
+block headers and cut streams without writing output; the bzip2 RLE1
+inverse and CRC checks after the device iBWT; and the host decoders for
+the shapes the device path declines. `build()` compiles `cpp/*.cc` with
+g++ into `build/oracle/libtpz_oracle.so` and never writes into `cpp/`,
+so the reference package's own build (`make -C cpp`) stays independent
+of it.
 The oracle's `generated_constants.h` is written from the port's own
 `tpz_torch/constants.py` (`write_constants_header`).
 """
@@ -149,6 +152,22 @@ def lib() -> ctypes.CDLL:
         L.tpz_lzhuf_plan.argtypes = [
             u32p, u32p, u32p, ctypes.c_int32, ctypes.c_int32, i64p, i64p,
             u8p, u16p, u8p, u16p, u8p, ctypes.c_size_t]
+        L.tpz_bzip2_encode.restype = ctypes.c_int
+        L.tpz_bzip2_encode.argtypes = [
+            u8p, ctypes.c_size_t, ctypes.c_int32, u8p, szp]
+        L.tpz_bzip2_decode.restype = ctypes.c_int
+        L.tpz_bzip2_decode.argtypes = [u8p, ctypes.c_size_t, u8p, szp]
+        L.tpz_bzip2_scan_headers.restype = ctypes.c_int
+        L.tpz_bzip2_scan_headers.argtypes = [
+            u8p, ctypes.c_size_t, ctypes.c_int32, i64p, i64p, u32p, u32p,
+            i32p, i32p, i32p, u8p, u8p, u8p, i32p]
+        L.tpz_bzip2_scan_to_last.restype = ctypes.c_int
+        L.tpz_bzip2_scan_to_last.argtypes = [
+            u8p, ctypes.c_size_t, u8p, ctypes.c_int64, i64p, i64p, u32p,
+            u32p, i32p]
+        L.tpz_bzip2_rle1_inverse.restype = ctypes.c_int
+        L.tpz_bzip2_rle1_inverse.argtypes = [
+            u8p, i64p, i64p, u32p, ctypes.c_int32, u8p, szp]
         _LIB = L
     return _LIB
 
@@ -431,3 +450,112 @@ def lzhuf_plan(c_freq: np.ndarray, p_freq: np.ndarray,
     return {"body_off": body_off, "total_bits": int(total_bits[0]),
             "c_len": c_len, "c_code": c_code, "p_len": p_len,
             "p_code": p_code, "header": header}
+
+
+# ------------------------------------------------------------------ bzip2
+
+BZ_SEL_CAP = 18432
+
+
+def bzip2_encode(data, level: int = 9) -> bytes:
+    a = _u8(data)
+    cap = a.size + (a.size >> 2) + 4096
+    out = np.zeros(cap, dtype=np.uint8)
+    n = ctypes.c_size_t(cap)
+    st = lib().tpz_bzip2_encode(_ptr(a, ctypes.c_uint8), a.size, level,
+                                _ptr(out, ctypes.c_uint8), ctypes.byref(n))
+    errors.raise_for_status(st, "bzip2_encode")
+    return out[: n.value].tobytes()
+
+
+def bzip2_decode(data) -> bytes:
+    """Host decode of a (possibly concatenated) .bz2 stream."""
+    a = _u8(data)
+    cap = max(4096, 80 * a.size)
+    for _ in range(8):
+        out = np.zeros(cap, dtype=np.uint8)
+        n = ctypes.c_size_t(cap)
+        st = lib().tpz_bzip2_decode(_ptr(a, ctypes.c_uint8), a.size,
+                                    _ptr(out, ctypes.c_uint8), ctypes.byref(n))
+        if st == errors.STATUS_BUFFER_TOO_SMALL:
+            cap = n.value
+            continue
+        errors.raise_for_status(st, "bzip2_decode")
+        return out[: n.value].tobytes()
+    errors.raise_for_status(errors.STATUS_BUFFER_TOO_SMALL,
+                            "bzip2_decode: output cap")
+
+
+def bzip2_scan_headers(data):
+    """Header-only scan for the device decode (cpp Bzip2ScanHeaders): per
+    block the symbol stream's bit offset, the slice end (the next block
+    magic), orig pointer and CRC, alphabet size, table and selector counts,
+    initial MTF list, selectors [nb, BZ_SEL_CAP] and the 6 x 258 code
+    lengths. None on shapes the device path does not take."""
+    a = _u8(data)
+    cap = max(4, a.size // 100 + 8)
+    out = {"sym_bits": np.zeros(cap, np.int64),
+           "end_bits": np.zeros(cap, np.int64),
+           "origs": np.zeros(cap, np.uint32), "crcs": np.zeros(cap, np.uint32),
+           "n_useds": np.zeros(cap, np.int32), "nts": np.zeros(cap, np.int32),
+           "nsels": np.zeros(cap, np.int32),
+           "mtf_init": np.zeros((cap, 256), np.uint8),
+           "selectors": np.zeros((cap, BZ_SEL_CAP), np.uint8),
+           "lens": np.zeros((cap, 6, 258), np.uint8)}
+    types = (ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
+             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_uint8,
+             ctypes.c_uint8, ctypes.c_uint8)
+    nb = np.zeros(1, np.int32)
+    st = lib().tpz_bzip2_scan_headers(
+        _ptr(a, ctypes.c_uint8), a.size, cap,
+        *[_ptr(v, t) for v, t in zip(out.values(), types)],
+        _ptr(nb, ctypes.c_int32))
+    if st == errors.STATUS_UNEXPECTED:
+        return None
+    errors.raise_for_status(st, "bzip2_scan_headers")
+    k = int(nb[0])
+    return {name: v[:k] for name, v in out.items()}
+
+
+def bzip2_scan_to_last(data):
+    """Host symbol decode of every block to its BWT last column (cpp
+    Bzip2ScanToLast). Returns (blob, offs, lens, origs, crcs), or None
+    when the stream's shape is not supported."""
+    a = _u8(data)
+    cap_blocks = max(4, a.size // 100 + 8)
+    blob_cap = 16 * a.size + (1 << 16)  # worst-case bzip2 expansion
+    blob = np.zeros(blob_cap, np.uint8)
+    offs = np.zeros(cap_blocks, np.int64)
+    lens = np.zeros(cap_blocks, np.int64)
+    origs = np.zeros(cap_blocks, np.uint32)
+    crcs = np.zeros(cap_blocks, np.uint32)
+    nb = ctypes.c_int32(cap_blocks)
+    st = lib().tpz_bzip2_scan_to_last(
+        _ptr(a, ctypes.c_uint8), a.size, _ptr(blob, ctypes.c_uint8), blob_cap,
+        _ptr(offs, ctypes.c_int64), _ptr(lens, ctypes.c_int64),
+        _ptr(origs, ctypes.c_uint32), _ptr(crcs, ctypes.c_uint32),
+        ctypes.byref(nb))
+    if st == errors.STATUS_UNEXPECTED:
+        return None
+    errors.raise_for_status(st, "bzip2_scan_to_last")
+    n = nb.value
+    return blob, offs[:n], lens[:n], origs[:n], crcs[:n]
+
+
+def bzip2_rle1_inverse(bwt_blob: np.ndarray, offs, lens, crcs) -> bytes:
+    """RLE1 inverse of each block's iBWT output (bwt_blob[offs:offs+lens])
+    with each block's CRC checked (cpp Bzip2Rle1Inverse); DataError on a
+    mismatch."""
+    a = np.ascontiguousarray(bwt_blob, np.uint8)
+    o = np.ascontiguousarray(offs, np.int64)
+    ln = np.ascontiguousarray(lens, np.int64)
+    c = np.ascontiguousarray(crcs, np.uint32)
+    cap = int(255 * np.sum(ln) // 4 + 4096)
+    out = np.zeros(cap, np.uint8)
+    n = ctypes.c_size_t(cap)
+    st = lib().tpz_bzip2_rle1_inverse(
+        _ptr(a, ctypes.c_uint8), _ptr(o, ctypes.c_int64),
+        _ptr(ln, ctypes.c_int64), _ptr(c, ctypes.c_uint32), len(o),
+        _ptr(out, ctypes.c_uint8), ctypes.byref(n))
+    errors.raise_for_status(st, "bzip2_rle1_inverse")
+    return out[: n.value].tobytes()
