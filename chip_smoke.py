@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the tpz_torch gzip and LZHUF encode and decode paths and
-the bzip2 decode path on one NVIDIA GPU.
+"""Smoke run of the tpz_torch gzip, LZHUF and bzip2 encode and decode
+paths, and of the two parse functions no codec path reaches, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -88,11 +89,38 @@ Phases (each prints one line; any failure raises and exits non-zero):
               (MB/s of plaintext), a per-stage split from CUDA events, and
               one call under torch.profiler (device busy time and idle
               share, as phase 12)
+ 16. bzip2-encode-kernels
+              the MTF-encode kernel against its plain version (exact
+              ranks) on the symbols and the selectors (alpha 6) of small
+              buffers and of the headline batch at level 9, built by the
+              encode's own stages; the headline's calls timed
+ 17. bzip2-encode-slice
+              api.compress_many on the headline batch at level 9, device
+              "cuda": the streams equal the oracle's blobs of phase 13, bz2
+              and the port's decode give the inputs back, one dispatch
+              (counts set to 0 just before it) launched the MTF kernel
+              twice (symbols, selectors); api.compress of 1 MiB at level
+              1, b"", b"a" and bytes(range(256)) * 40 the same; the 1 MiB
+              buffer again in dispatches of at most 4 blocks
+ 18. bzip2-encode-timing
+              warm median of 3 compress_many calls on the timing batches
+              (MB/s), a per-stage split from CUDA events, and one call
+              under torch.profiler
+ 19. parse-kernels-8-9
+              the v3w walk kernel against its plain version on 1 MiB of
+              corpus.mixed and corpus.repetitive at levels 1 and 6
+              (greedy, lazy) and at the headline, and against #1 at
+              n_extend=1 at live positions; greedy_parse on the headline
+              gzip parse's lengths gives back its token set, the reach
+              kernel equals the pointer doubling there; each called
+              through its public function with its count set to 0, both
+              timed at the headline
 A JSON record of the kernels (launches from each one's main-path call:
-gzip encode, gzip decode, lh5 encode, lh5 decode, bzip2 decode; times
-and bounds at the headline shapes) comes before the card's name and power
-limit; the last line is {"ok": true, "device": {...}}. Needs the
-repository checkout around it.
+gzip encode, gzip decode, lh5 encode, lh5 decode, bzip2 decode, the
+public functions of #8 and #9, bzip2 encode; times and bounds at the
+headline shapes) comes before the card's name and power limit; the last
+line is {"ok": true, "device": {...}}. Needs the repository checkout
+around it.
 """
 
 from __future__ import annotations
@@ -145,6 +173,10 @@ OPS_BZIP2_TRIP = 60        # bzip2_walk.cu: one trip (a symbol, or a held one)
 OPS_BZIP2_MTF = 24         # ... a move-to-front and its record
 OPS_IBWT_STEP = 17         # ibwt_walk.cu: a node in pass 1 and in pass 2
 OPS_IBWT_CHAIN = 45        # ... a chain's set-up in both passes and stitch
+OPS_MTF_SYMBOL = 40        # mtf_encode.cu: a symbol's rank and move
+OPS_REACH_STEP = 8         # reach_walk.cu: a visited position
+OPS_V3W_TOKEN = 36         # parse_v3w_walk.cu: a token through TOK and FIN
+OPS_V3W_EXTEND = 12        # ... one 4-byte extension compare
 BZIP2_LEVEL = 9
 
 
@@ -1165,6 +1197,282 @@ def bzip2_inputs(batch):
     return blobs, stdlib, cat, small
 
 
+def bzip2_encode_front(datas):
+    """The MTF kernel's two inputs on the bzip2 encode path for `datas` at
+    level 9, built by the encode's own stages on the card: ((symbols,
+    lengths), (selectors, counts), the BWT's rounds)."""
+    from tpz_torch import oracle
+    from tpz_torch.kernels import bwt, mtf, rle
+    from tpz_torch.kernels import bzip2_pipeline as bp
+    from tpz_torch.kernels import bzip2_plan_device as pd
+
+    rows, lens, crcs, _ = bp.block_rows(bp.stream_blocks(
+        [oracle.bzip2_rle1(d, BZIP2_LEVEL) for d in datas]))
+    n = torch.from_numpy(lens).cuda()
+    w = bwt.cyclic_words_device(torch.from_numpy(rows).cuda(), n)
+    last, orig = bwt.bwt_batched(w, n)
+    rounds = bwt.bwt_batched.rounds
+    del w
+    v, used = bp.mtf_input(last, n)
+    syms, sym_len = rle.rle2_encode(mtf.mtf_ranks(v, n), n)
+    seen = []
+    real = pd.mtf_ranks
+    pd.mtf_ranks = lambda s, c, alpha=256: seen.append((s, c)) or real(
+        s, c, alpha)
+    try:
+        pd.encode_blocks(syms, sym_len, used, used.sum(1, dtype=torch.int32),
+                         orig.to(torch.int32), torch.from_numpy(crcs).cuda())
+    finally:
+        pd.mtf_ranks = real
+    return (v, n), seen[0], rounds
+
+
+def compare_mtf(v, n, alpha):
+    """MTF kernel vs plain on the same CUDA tensors: (max abs difference,
+    kernel ms, plain ms), each timed on its first call. Raises unless the
+    ranks are equal."""
+    from tpz_torch.kernels import mtf
+
+    before = mtf.mtf_ranks.launches
+    got, ms = timed(lambda: mtf.mtf_ranks(v, n, alpha))
+    if mtf.mtf_ranks.launches != before + 1:
+        raise RuntimeError("mtf wrapper did not launch its kernel")
+    want, plain_ms = timed(lambda: mtf.mtf_ranks_plain(v, n, alpha))
+    err = int((got - want).abs().max())
+    if err:
+        raise RuntimeError(f"mtf kernel disagrees with plain: {err}")
+    return err, ms, plain_ms
+
+
+def phase_bzip2_encode_kernels(batch):
+    """The MTF kernel against its plain version on the symbols and the
+    selectors of small buffers and of the headline batch; the headline's
+    calls timed. Returns its kernel-line row (the symbols' call)."""
+    from tpz_torch.kernels import mtf
+    from tpz_torch.utils import corpus
+
+    rng = np.random.default_rng(61)
+    small = {"text-8KiB": corpus.text(8192, seed=61),
+             "mixed-64KiB": corpus.mixed(1 << 16, seed=62),
+             "range256x40": bytes(range(256)) * 40,
+             "random-5000": bytes(rng.integers(0, 256, 5000,
+                                               dtype=np.uint8))}
+    err = 0
+    for name, data in small.items():
+        (v, n), (sel, nsel), _ = bzip2_encode_front([data])
+        e1, _, _ = compare_mtf(v, n, 256)
+        e2, _, _ = compare_mtf(sel, nsel, 6)
+        err = max(err, e1, e2)
+        log("bzip2-encode-kernels", input=name, symbols=int(n.sum()),
+            selectors=int(nsel.sum()), max_abs_err=err)
+    (v, n), (sel, nsel), rounds = bzip2_encode_front(batch)
+    e, cold_ms, plain_ms = compare_mtf(v, n, 256)
+    _, ms = timed(lambda: mtf.mtf_ranks(v, n), 5)
+    es, sel_cold_ms, sel_plain_ms = compare_mtf(sel, nsel, 6)
+    _, sel_ms = timed(lambda: mtf.mtf_ranks(sel, nsel, 6), 5)
+    err = max(err, e, es)
+    symbols = int(n.long().sum())
+    # The walk reads each live symbol and writes its rank.
+    mtf_bound = bound_bytes_ops(8 * symbols + 4 * n.numel(),
+                                symbols * OPS_MTF_SYMBOL)
+    log("bzip2-encode-kernels", input="headline-2x16MiB-l9",
+        blocks=n.numel(), N=v.shape[1], bwt_rounds=rounds, symbols=symbols,
+        max_abs_err=err, ms=f"{ms:.3f}", first_call_ms=f"{cold_ms:.3f}",
+        plain_ms=f"{plain_ms:.3f}",
+        bound_ms=f"{mtf_bound['bound_ms']:.4f}",
+        selectors=int(nsel.long().sum()), sel_ms=f"{sel_ms:.3f}",
+        sel_first_call_ms=f"{sel_cold_ms:.3f}",
+        sel_plain_ms=f"{sel_plain_ms:.3f}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **mtf_bound}
+
+
+def phase_bzip2_encode_slice(batch, blobs):
+    """bzip2 encode through the api on the card: the headline batch at
+    level 9 equals the oracle's blobs of phase 13 and round-trips through
+    bz2 and the port's decode, one dispatch launching the MTF kernel for
+    the symbols and the selectors; api.compress on 1 MiB at level 1, b"",
+    b"a" and bytes(range(256)) * 40 the same, and the 1 MiB buffer again
+    with its blocks spread over dispatches of at most 4. Returns the
+    batch's MTF launches."""
+    from tpz_torch import api, oracle
+    from tpz_torch.kernels import bzip2_pipeline as bp
+    from tpz_torch.kernels import mtf
+    from tpz_torch.utils import corpus
+
+    out, dt, c = drive("bzip2-encode-slice", "batch-2x16MiB-l9",
+                       lambda: api.compress_many(batch, "bzip2", BZIP2_LEVEL,
+                                                 device="cuda"),
+                       {"mtf": mtf.mtf_ranks})
+    if c["mtf"] != 2:
+        raise RuntimeError(f"batch: not one dispatch (symbols and selectors):"
+                           f" {c['mtf']} MTF launches")
+    for i, (d, blob, ref) in enumerate(zip(batch, out, blobs)):
+        if blob != ref:
+            raise RuntimeError(f"buffer {i}: bzip2 stream differs from the "
+                               "oracle's")
+        if bz2.decompress(blob) != d:
+            raise RuntimeError(f"buffer {i}: bz2 round trip failed")
+    if api.decompress_many(out, "bzip2", device="cuda") != list(batch):
+        raise RuntimeError("batch: the port's decode did not give it back")
+    log("bzip2-encode-slice", path="batch-2x16MiB-l9", buffers=len(batch),
+        bytes=sum(map(len, batch)),
+        ratio=f"{sum(map(len, out)) / sum(map(len, batch)):.4f}",
+        cold_s=f"{dt:.3f}", mtf_launches=c["mtf"], oracle_identical=True,
+        bz2_round_trip=True, port_round_trip=True)
+    cases = {"1MiB-mixed-l1": (corpus.mixed(MIB, seed=52), 1),
+             "empty": (b"", BZIP2_LEVEL), "a": (b"a", BZIP2_LEVEL),
+             "range256x40": (bytes(range(256)) * 40, BZIP2_LEVEL)}
+    for name, (d, level) in cases.items():
+        mtf.mtf_ranks.launches = 0
+        blob = api.compress(d, "bzip2", level, device="cuda")
+        if (blob != oracle.bzip2_encode(d, level) or bz2.decompress(blob) != d
+                or api.decompress(blob, "bzip2", device="cuda") != d):
+            raise RuntimeError(f"{name}: bzip2 encode differs or does not "
+                               "round-trip")
+        log("bzip2-encode-slice", path=f"compress-{name}", level=level,
+            mtf_launches=mtf.mtf_ranks.launches, oracle_identical=True,
+            round_trip=True)
+    # One buffer whose blocks span dispatches: 1 MiB at level 1 in
+    # dispatches of at most 4 blocks.
+    d = cases["1MiB-mixed-l1"][0]
+    n_disp = -(-oracle.bzip2_rle1(d, 1)[2].size // 4)
+    keep, bp.MAX_DISPATCH_BLOCKS = bp.MAX_DISPATCH_BLOCKS, 4
+    try:
+        mtf.mtf_ranks.launches = 0
+        blob = api.compress(d, "bzip2", 1, device="cuda")
+    finally:
+        bp.MAX_DISPATCH_BLOCKS = keep
+    if (blob != oracle.bzip2_encode(d, 1) or n_disp < 2
+            or mtf.mtf_ranks.launches != 2 * n_disp):
+        raise RuntimeError("a buffer split across dispatches differs from the "
+                           f"oracle's or ran {mtf.mtf_ranks.launches} MTF "
+                           f"launches for {n_disp} dispatches")
+    log("bzip2-encode-slice", path="compress-1MiB-mixed-l1-split",
+        dispatches=n_disp, mtf_launches=mtf.mtf_ranks.launches,
+        oracle_identical=True)
+    return c["mtf"]
+
+
+def phase_bzip2_encode_timing(batches, smi) -> None:
+    from tpz_torch import api
+    from tpz_torch.codecs import bzip2
+    from tpz_torch.kernels import bwt
+
+    total = sum(len(d) for d in batches[0])
+    median, times = warm_median(lambda b: api.compress_many(
+        b, "bzip2", BZIP2_LEVEL, device="cuda"), batches)
+    log("bzip2-encode-timing", mb_per_s=f"{total / median / 1e6:.2f}",
+        median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
+        bwt_rounds=bwt.bwt_batched.rounds, card=f"'{smi}'")
+    split = stage_split(lambda hook: bzip2.compress_many(
+        batches[-1], BZIP2_LEVEL, device="cuda", stage_hook=hook))
+    log("bzip2-encode-timing",
+        **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
+    profile_call(lambda: api.compress_many(batches[0], "bzip2", BZIP2_LEVEL,
+                                           device="cuda"),
+                 "bzip2-encode", phase="bzip2-encode-timing")
+
+
+def compare_v3w(inputs, cfg):
+    """v3w kernel vs plain on the same CUDA tensors: (max abs difference
+    at every position, kernel ms, plain ms), each timed on its first call.
+    Raises unless all three outputs are equal."""
+    from tpz_torch.kernels import parse
+
+    pk1, pk2, _, words, bl = inputs
+    args = _parse_args(cfg)[:7]
+    before = parse.parse_extend_v3w.launches
+    got, ms = timed(lambda: parse.parse_extend_v3w(pk1, pk2, words, bl,
+                                                   *args))
+    if parse.parse_extend_v3w.launches != before + 1:
+        raise RuntimeError("v3w wrapper did not launch its kernel")
+    want, plain_ms = timed(lambda: parse.parse_extend_v3w_plain(
+        pk1, pk2, words, bl, *args, group=pk1.shape[0]))
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    if err:
+        raise RuntimeError(f"v3w kernel disagrees with plain: {err}")
+    return got, err, ms, plain_ms
+
+
+def phase_parse_kernels_8_9(headline, small):
+    """#8 and #9 through their public functions (no codec path reaches
+    either, as in the reference): greedy_parse on the headline gzip
+    parse's lengths, whose token set it must give back, and #8 against
+    its doubling; parse_extend_v3w against its plain version on the 1 MiB
+    inputs (greedy and lazy) and at the headline, and against #1 at
+    n_extend=1 at live positions. Returns the kernel-line rows and
+    launches of #8 and #9."""
+    from tpz_torch.codecs.deflate import DeflateConfig
+    from tpz_torch.kernels import parse
+
+    err9 = 0
+    for name, data in small.items():
+        for level in (1, 6):
+            cfg = DeflateConfig(level=level)
+            _, e, _, plain_ms = compare_v3w(parse_inputs([data], cfg, "cuda"),
+                                            cfg)
+            err9 = max(err9, e)
+            log("parse-kernels-8-9", input=name, level=level, lazy=cfg.lazy,
+                v3w_max_abs_err=err9, v3w_plain_ms=f"{plain_ms:.1f}")
+
+    cfg = DeflateConfig(level=LEVEL)
+    inputs = parse_inputs(headline, cfg, "cuda")
+    pk1, pk2, cap_at, words, bl = inputs
+    args = _parse_args(cfg)
+    got9, dt9, c9 = drive("parse-kernels-8-9", "parse_extend_v3w",
+                          lambda: parse.parse_extend_v3w(pk1, pk2, words, bl,
+                                                         *args[:7]),
+                          {"v3w": parse.parse_extend_v3w})
+    pos = torch.arange(pk1.shape[1], device=pk1.device)
+    live = pos[None, :] < bl[:, None]
+    want1 = parse.parse_extend_v3(*inputs, *args[:7], 1)
+    e1 = max(int(((g - w).abs() * live).max()) for g, w in zip(got9, want1))
+    if e1:
+        raise RuntimeError(f"v3w kernel disagrees with #1 at n_extend=1: {e1}")
+    _, e, _, v3w_plain_ms = compare_v3w(inputs, cfg)
+    err9 = max(err9, e)
+    _, v3w_ms = timed(lambda: parse.parse_extend_v3w(pk1, pk2, words, bl,
+                                                     *args[:7]), 5)
+    mlen9 = got9[1]
+    v3w_bound = bound([pk1, words, bl, got9[0]], int(
+        (got9[0] > 0).sum()) * OPS_V3W_TOKEN + int(
+        (torch.clamp(mlen9 - cfg.screen_bytes, min=0) // 4).sum())
+        * OPS_V3W_EXTEND)
+    log("parse-kernels-8-9", input="headline", blocks=pk1.shape[0],
+        restart=cfg.restart, lazy=cfg.lazy, v3w_cold_s=f"{dt9:.3f}",
+        v3w_launches=c9["v3w"], v3w_vs_v3_n_extend_1_err=e1,
+        v3w_max_abs_err=err9, v3w_ms=f"{v3w_ms:.3f}",
+        v3w_plain_ms=f"{v3w_plain_ms:.3f}",
+        v3w_bound_ms=f"{v3w_bound['bound_ms']:.4f}")
+    del got9, want1
+
+    visited, mlen, mdist = parse.parse_extend_v3(*inputs, *args)
+    (tok, _, ntok), dt8, c8 = drive(
+        "parse-kernels-8-9", "greedy_parse",
+        lambda: parse.greedy_parse(mlen, mdist, bl), {"reach": parse.reach_walk})
+    if not torch.equal(tok, (visited > 0) & live):
+        raise RuntimeError("greedy_parse lost the headline parse's tokens")
+    step = torch.where(mlen >= 3, mlen, 1).to(torch.int32).contiguous()
+    got8, _ = timed(lambda: parse.reach_walk(step))
+    want8, reach_plain_ms = timed(
+        lambda: parse._reach_doubling(step.to(torch.int64)).to(torch.int32))
+    err8 = int((got8 - want8).abs().max())
+    if err8:
+        raise RuntimeError(f"reach kernel disagrees with plain: {err8}")
+    _, reach_ms = timed(lambda: parse.reach_walk(step), 5)
+    reach_bound = bound([step, got8], int(got8.sum()) * OPS_REACH_STEP)
+    log("parse-kernels-8-9", input="headline", rows=step.shape[0],
+        tokens=int(ntok.sum()), visited=int(got8.sum()),
+        reach_cold_s=f"{dt8:.3f}", reach_launches=c8["reach"],
+        token_set_equal=True, reach_max_abs_err=err8,
+        reach_ms=f"{reach_ms:.3f}", reach_plain_ms=f"{reach_plain_ms:.3f}",
+        reach_bound_ms=f"{reach_bound['bound_ms']:.4f}")
+    return ({"max_abs_err": err8, "ms": reach_ms, "plain_ms": reach_plain_ms,
+             **reach_bound}, c8["reach"],
+            {"max_abs_err": err9, "ms": v3w_ms, "plain_ms": v3w_plain_ms,
+             **v3w_bound}, c9["v3w"])
+
+
 def main() -> int:
     import tpz_torch  # noqa: F401 — fails at once outside a checkout
     from tpz_torch.utils import corpus
@@ -1201,9 +1509,15 @@ def main() -> int:
     bz_walk, bz_ibwt = phase_bzip2_kernels(small_bz, bz_blobs)
     bz = phase_bzip2_slice(batches[0], bz_blobs, stdlib_blob, *cat)
     phase_bzip2_timing(batches[0], bz_blobs, smi)
+    mtf_row = phase_bzip2_encode_kernels(batches[0])
+    mtf_n = phase_bzip2_encode_slice(batches[0], bz_blobs)
+    del bz_blobs
+    phase_bzip2_encode_timing(batches[1:], smi)
+    reach, reach_n, v3w, v3w_n = phase_parse_kernels_8_9(batches[0], small)
     # Each kernel's launches come from its own main-path call: gzip encode
     # (#1), gzip decode (#2, #3), lh5 encode (#4), lh5 decode (#5), bzip2
-    # decode (#6, #7).
+    # decode (#6, #7), the public functions greedy_parse (#8) and
+    # parse_extend_v3w (#9), bzip2 encode (the MTF encode).
     rows = [("parse_walk_v3", "parse_walk.cu", "tpz/kernels/parse.py:464",
              launches, kern),
             ("symbol_walk", "symbol_walk.cu",
@@ -1217,7 +1531,13 @@ def main() -> int:
             ("bzip2_walk", "bzip2_walk.cu", "tpz/kernels/bzip2_walk.py:334",
              bz["walk"], bz_walk),
             ("ibwt_walk", "ibwt_walk.cu", "tpz/kernels/ibwt_walk.py:150",
-             bz["ibwt"], bz_ibwt)]
+             bz["ibwt"], bz_ibwt),
+            ("reach_walk", "reach_walk.cu", "tpz/kernels/parse.py:29",
+             reach_n, reach),
+            ("parse_walk_v3w", "parse_v3w_walk.cu", "tpz/kernels/parse.py:211",
+             v3w_n, v3w),
+            ("mtf_encode", "mtf_encode.cu", "tpz/kernels/mtf.py:36", mtf_n,
+             mtf_row)]
     # None of these walks has one PyTorch call that computes its function.
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"tpz_torch/csrc/{src}",

@@ -118,8 +118,10 @@ def test_cuda_request_without_card_raises():
 
 
 def test_unknown_format_raises():
-    with pytest.raises(ValueError, match="bzip2"):
-        api.compress(b"abc", "bzip2", device="cpu")
+    """A format the port does not encode (bzip2 was one until it was
+    ported; raw LZSS still is) raises and names it."""
+    with pytest.raises(ValueError, match="unsupported format 'lzss'"):
+        api.compress(b"abc", "lzss", device="cpu")
 
 
 def test_oversized_single_buffer_raises(monkeypatch):

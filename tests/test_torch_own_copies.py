@@ -77,22 +77,35 @@ def test_generated_header_equals_the_reference_generators(tmp_path):
 
 
 def test_port_loads_nothing_from_the_reference_package():
-    """A fresh interpreter imports the port's api and its bzip2 decode
-    modules, builds and loads its oracle, encodes and decodes LZHUF and
-    decodes a bzip2 stream on the CPU: jax stays unloaded and no loaded
-    module's file lies under tpz/."""
+    """A fresh interpreter imports the port's api, its bzip2 modules (both
+    directions) and its parse walks, builds and loads its oracle, encodes
+    and decodes LZHUF and bzip2 on the CPU and runs the greedy parse and
+    the v3w walk: jax stays unloaded and no loaded module's file lies
+    under tpz/."""
     oracle.build()  # so the child only loads it
     code = (
         "import bz2, json, os, sys\n"
+        "import torch\n"
         "import tpz_torch.api as api\n"
         "import tpz_torch.codecs.bzip2, tpz_torch.kernels.bzip2_pipeline\n"
         "import tpz_torch.kernels.bzip2_walk, tpz_torch.kernels.ibwt_walk\n"
+        "import tpz_torch.kernels.bwt, tpz_torch.kernels.mtf\n"
+        "import tpz_torch.kernels.rle, tpz_torch.kernels.bzip2_plan_device\n"
+        "from tpz_torch.kernels import parse\n"
         "from tpz_torch import REPO_ROOT, oracle\n"
         "oracle.lib()\n"
         "blob = api.compress(b'abc' * 100, 'lh5', device='cpu')\n"
         "assert api.decompress(blob, 'lh5', device='cpu') == b'abc' * 100\n"
         "bz = bz2.compress(b'tpz bzip2', 1)\n"
         "assert api.decompress(bz, 'bzip2', device='cpu') == b'tpz bzip2'\n"
+        "bz = api.compress(b'tpz bzip2 encode', 'bzip2', 9, device='cpu')\n"
+        "assert bz2.decompress(bz) == b'tpz bzip2 encode'\n"
+        "ml = torch.tensor([[4, 0, 0, 0, 3, 0, 0, 1]], dtype=torch.int32)\n"
+        "tok = parse.greedy_parse(ml, ml, torch.tensor([8]))[0]\n"
+        "assert tok.tolist() == [[1, 0, 0, 0, 1, 0, 0, 1]]\n"
+        "z = torch.zeros((1, 256), dtype=torch.int32)\n"
+        "parse.parse_extend_v3w(z, z, torch.zeros((1, 1024), dtype=torch.int32),\n"
+        "                       torch.tensor([256], dtype=torch.int32), 256)\n"
         "ref = os.path.join(REPO_ROOT, 'tpz') + os.sep\n"
         "bad = sorted(n for n, m in list(sys.modules.items())\n"
         "             if (getattr(m, '__file__', None) or '').startswith(ref))\n"
@@ -112,8 +125,11 @@ def test_port_loads_nothing_from_the_reference_package():
     lambda: api.decompress_many([b"TPZLlh7" + bytes(8)], "lh7"),
     lambda: api.decompress(b"BZh9", "bzip2"),
     lambda: api.decompress_many([b"BZh9"], "bzip2"),
+    lambda: api.compress(b"abc", "bzip2"),
+    lambda: api.compress_many([b"abc"], "bzip2"),
 ], ids=["compress", "compress_many", "decompress", "decompress_many",
-        "bzip2-decompress", "bzip2-decompress_many"])
+        "bzip2-decompress", "bzip2-decompress_many", "bzip2-compress",
+        "bzip2-compress_many"])
 def test_entry_points_default_to_the_card(call):
     """The entry points run on the card unless the caller asks for the
     CPU; with no card they raise instead of running elsewhere."""

@@ -1,8 +1,7 @@
 """Public entry points of the port: whole-buffer and batched encode and
-decode for "gzip", "deflate", "zlib" and the LZHUF methods "lh4"-"lh7",
-and decode for "bzip2" (its encode is not ported yet and raises as an
-unsupported format). They run on the card (`device="cuda"`) unless the
-caller asks for the CPU (`device="cpu"`); "cuda" without a card raises."""
+decode for "gzip", "deflate", "zlib", "bzip2" and the LZHUF methods
+"lh4"-"lh7". They run on the card (`device="cuda"`) unless the caller
+asks for the CPU (`device="cpu"`); "cuda" without a card raises."""
 
 from __future__ import annotations
 
@@ -13,12 +12,14 @@ from tpz_torch.codecs import bzip2, deflate, gzip_codec, lzhuf, zlib_codec
 
 # Each entry is called as fn(data(s), level, device=...) to encode and
 # fn(data(s), device=...) to decode. The LZHUF entries bind their method
-# and ignore the level (LZHUF has one profile), as the reference's do.
+# and ignore the level (LZHUF has one profile), as the reference's do;
+# bzip2 takes the level as its block size in units of 100 k.
 _COMPRESS = {"gzip": gzip_codec.compress, "deflate": deflate.compress,
-             "zlib": zlib_codec.compress}
+             "zlib": zlib_codec.compress, "bzip2": bzip2.compress}
 _COMPRESS_MANY = {"gzip": gzip_codec.compress_many,
                   "deflate": deflate.compress_many,
-                  "zlib": zlib_codec.compress_many}
+                  "zlib": zlib_codec.compress_many,
+                  "bzip2": bzip2.compress_many}
 _DECOMPRESS = {"gzip": gzip_codec.decompress, "deflate": deflate.decompress,
                "zlib": zlib_codec.decompress, "bzip2": bzip2.decompress}
 _DECOMPRESS_MANY = {"gzip": gzip_codec.decompress_many,

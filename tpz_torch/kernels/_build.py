@@ -84,5 +84,11 @@ def lib() -> ctypes.CDLL:
         L.tpz_bzip2_walk.argtypes = [vp] * 9 + [ci] * 3 + [vp]
         L.tpz_ibwt_walk.restype = ci
         L.tpz_ibwt_walk.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+        L.tpz_reach_walk.restype = ci
+        L.tpz_reach_walk.argtypes = [vp] * 2 + [ci] * 2 + [vp]
+        L.tpz_parse_v3w_walk.restype = ci
+        L.tpz_parse_v3w_walk.argtypes = [vp] * 4 + [ci] * 10 + [vp]
+        L.tpz_mtf_encode.restype = ci
+        L.tpz_mtf_encode.argtypes = [vp] * 3 + [ci] * 2 + [vp]
         _LIB = L
     return _LIB

@@ -1,7 +1,30 @@
-"""Batched bzip2 decode on one torch device (port of the decode half of
+"""Batched bzip2 encode and decode on one torch device (port of
 tpz/kernels/bzip2_pipeline.py).
 
-Stage by stage (the names `stage_hook` receives):
+ENCODE, stage by stage (the names `stage_hook` receives):
+  rle1          (host) RLE1 and the block split with block CRCs (C++)
+  words         the blocks copied to the device as bytes, and their
+                cyclic 4-byte words built there (bwt.cyclic_words_device)
+  bwt           the cyclic prefix-doubling BWT (bwt.bwt_batched)
+  mtf           the used-byte map and MTF encode (CUDA kernel on a card)
+  rle2          RLE2 (rle.rle2_encode)
+  plan          the multi-table Huffman coder and its emission slots
+                (bzip2_plan_device.encode_blocks; the selectors' MTF runs
+                the same kernel)
+  pack          the MSB bit packing of every block at its stream offset
+  fetch         device-to-host copy of the packed words
+  frame         (host) each buffer's 'BZh<level>' header and end-of-stream
+                trailer with its combined CRC
+The batch has one bit layout: each buffer's stream starts word-aligned
+after a 32-bit gap for its header, its blocks follow bit after bit. Every
+block of a batch shares one dispatch of at most MAX_DISPATCH_BLOCKS
+blocks; a bigger batch (or buffer) runs in several, cut between any two
+blocks. Each dispatch packs its blocks at their offsets in that layout,
+and the host ORs the dispatches' words together: two dispatches share at
+most the word where one ends and the next begins. An empty buffer is the
+format's empty stream. The bytes equal oracle.bzip2_encode's.
+
+DECODE, stage by stage:
   scan          (host) each stream's block headers (cpp Bzip2ScanHeaders):
                 block magics, selectors, code lengths, initial MTF lists
   slices        (host) each block's symbol-bit slice, its decode tables
@@ -31,19 +54,32 @@ only periodic blocks.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+import torch
 
 from tpz_torch import oracle
 from tpz_torch.errors import CompressionError, DataError
 from tpz_torch.kernels import bzip2_walk
+from tpz_torch.kernels.bitpack import assemble_stream_msb
+from tpz_torch.kernels.bwt import bwt_batched, cyclic_words_device
+from tpz_torch.kernels.bzip2_plan_device import encode_blocks
 from tpz_torch.kernels.deflate_pipeline import _device, _nohook
 from tpz_torch.kernels.ibwt_walk import ibwt_blocks_fast
+from tpz_torch.kernels.mtf import mtf_ranks
+from tpz_torch.kernels.rle import rle2_encode
 
 # Blocks per device dispatch: at N = 2^20 a block holds about 30 MB of
-# device memory through the walk, expansion and sort, so this bounds a
-# dispatch near 2 GB. It changes no result.
+# device memory through the decode's walk, expansion and sort, and about
+# 150 MB at the encode's peak (the coder's group histograms and slots), so
+# this bounds a dispatch near 2 and 10 GB whatever the batch (a buffer's
+# blocks may span dispatches). It changes no result.
 MAX_DISPATCH_BLOCKS = 64
 SLICE_SLACK = 8192        # bytes a block's slice may run past its bucket
+EOS_MAGIC = 0x177245385090
+BLOCK_MAGIC = 0x314159265359
 
 # Streams handed to the host decoder because the device path declined
 # their shape (see the module docstring).
@@ -101,11 +137,11 @@ def _eos_ok(data: bytes, end_bits_abs, crcs) -> bool:
         combined = (((combined << 1) | (combined >> 31))
                     ^ int(crcs[i])) & 0xFFFFFFFF
         nxt = _peek_bits(data, int(e), 48)
-        if nxt == 0x177245385090:                      # EOS
+        if nxt == EOS_MAGIC:
             if _peek_bits(data, int(e) + 48, 32) != combined:
                 return False
             combined = 0
-        elif nxt != 0x314159265359:                    # next block magic
+        elif nxt != BLOCK_MAGIC:                       # next block
             return False
     return combined == 0
 
@@ -273,3 +309,169 @@ def decompress(data: bytes, device="cuda") -> bytes:
     if out is None:
         out = _decompress_last_route(data, device)
     return out if out is not None else _host_decode(data)
+
+
+# ------------------------------------------------------------------ encode
+
+def _level(level: int) -> int:
+    return max(1, min(9, int(level)))
+
+
+def empty_stream(level: int) -> bytes:
+    """The stream of b"": the header, the end-of-stream magic and a
+    combined CRC of 0, as the oracle writes it."""
+    return (b"BZh" + bytes([0x30 + _level(level)])
+            + ((EOS_MAGIC << 32) | 0).to_bytes(10, "big"))
+
+
+def stream_blocks(parts):
+    """Every block of some buffers' host RLE1 output (oracle.bzip2_rle1's
+    (rle, off, len, crc) each) in stream order, as (bytes, crc, first:
+    the block opens its buffer's stream)."""
+    return [(rle[o:o + n], int(c), j == 0) for rle, off, ln, crc in parts
+            for j, (o, n, c) in enumerate(zip(off, ln, crc))]
+
+
+def block_rows(blocks):
+    """Blocks of stream_blocks as one batch: (rows [NB, N] uint8
+    zero-padded to the bucket N, lens [NB] int32, crcs [NB] int64, first
+    [NB] bool)."""
+    lens = np.array([b.size for b, _, _ in blocks], np.int32)
+    rows = np.zeros((lens.size, _bucket(int(lens.max()))), np.uint8)
+    for i, (b, _, _) in enumerate(blocks):
+        rows[i, :b.size] = b
+    return (rows, lens, np.array([c for _, c, _ in blocks], np.int64),
+            np.array([f for _, _, f in blocks], bool))
+
+
+def mtf_input(last: torch.Tensor, n: torch.Tensor):
+    """The BWT last columns [NB, N] and lengths [NB] -> (v [NB, N] int32,
+    each live byte's index among the block's used bytes, 0 past n; used
+    [NB, 256] int32 0/1)."""
+    NB, N = last.shape
+    live = torch.arange(N, device=last.device)[None, :] < n[:, None]
+    used = torch.zeros((NB, 257), dtype=torch.int32, device=last.device)
+    used.scatter_(1, torch.where(live, last, 256).to(torch.int64), 1)
+    used = used[:, :256].contiguous()
+    to_seq = torch.cumsum(used, dim=1, dtype=torch.int32) - 1
+    v = torch.gather(to_seq, 1, torch.where(live, last, 0).to(torch.int64))
+    return torch.where(live, v, 0).contiguous(), used
+
+
+def _fused_bwt_mtf(rows: torch.Tensor, n: torch.Tensor, stage_hook):
+    """BWT, used-byte map, MTF and RLE2 of the uint8 rows [NB, N] with
+    lengths n [NB] int32, on their device. Returns (orig, syms, sym_len,
+    used, n_used)."""
+    w = cyclic_words_device(rows, n)
+    stage_hook("words")
+    last, orig = bwt_batched(w, n)
+    del w
+    stage_hook("bwt")
+    v, used = mtf_input(last, n)
+    ranks = mtf_ranks(v, n)
+    del last, v
+    stage_hook("mtf")
+    syms, sym_len = rle2_encode(ranks, n)
+    stage_hook("rle2")
+    return orig, syms, sym_len, used, used.sum(dim=1, dtype=torch.int32)
+
+
+def _encode_dispatch(blocks, pos: int, device, stage_hook):
+    """One device dispatch for `blocks` (stream_blocks), the first of which
+    starts at bit `pos` of the batch's layout (a block that opens a stream
+    starts word-aligned after a 32-bit gap for its header). Returns (w0,
+    words uint32: the layout's words w0 onward, holding these blocks' bits
+    and zeros elsewhere; body_off, total_bits [NB] int64: each block's bit
+    offset in the layout and its length; the bit where the last ends)."""
+    rows, lens, crcs, first = block_rows(blocks)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    n = dev(lens)
+    orig, syms, sym_len, used, n_used = _fused_bwt_mtf(dev(rows), n,
+                                                       stage_hook)
+    vals, nbits, total_bits = encode_blocks(
+        syms, sym_len, used, n_used, orig.to(torch.int32), dev(crcs))
+    del syms
+    stage_hook("plan")
+    tb = total_bits.cpu().numpy()
+    w0 = pos // 32
+    body_off = np.zeros_like(tb)
+    for b in range(tb.size):
+        if first[b]:
+            pos = (pos + 31) // 32 * 32 + 32
+        body_off[b] = pos
+        pos += int(tb[b])
+    words = assemble_stream_msb(vals, nbits, dev(body_off - 32 * w0),
+                                -(-pos // 32) - w0)
+    del vals, nbits
+    stage_hook("pack")
+    words = words.cpu().numpy().astype(np.uint32)
+    stage_hook("fetch")
+    return w0, words, body_off, tb, pos
+
+
+def _splice_eos(body: bytearray, end_bit: int, crcs) -> bytes:
+    """Append the 48-bit end-of-stream magic and the 32-bit combined CRC
+    at `end_bit` (blocks are not byte-aligned), padded to a byte."""
+    combined = 0
+    for c in crcs:
+        combined = (((combined << 1) | (combined >> 31)) ^ int(c)) \
+            & 0xFFFFFFFF
+    tail_bits = (EOS_MAGIC << 32) | combined          # 80 bits
+    sh = end_bit & 7
+    nbytes = (sh + 80 + 7) // 8
+    # The partial byte's high bits, then the trailer.
+    head = body[end_bit // 8] >> (8 - sh) if sh else 0
+    v = ((head << 80) | tail_bits) << (8 * nbytes - sh - 80)
+    del body[end_bit // 8:]
+    body += v.to_bytes(nbytes, "big")
+    return bytes(body)
+
+
+def compress_many(datas, level: int = 9, device="cuda",
+                  stage_hook=_nohook) -> list[bytes]:
+    """Batched bzip2 encode: every buffer's blocks share one device
+    dispatch (several above MAX_DISPATCH_BLOCKS blocks); the host runs
+    only RLE1 and the framing. Byte-identical to oracle.bzip2_encode."""
+    device = _device(device)
+    level = _level(level)
+    datas = [bytes(d) for d in datas]
+    results = [empty_stream(level) if not d else None for d in datas]
+    todo = [i for i, d in enumerate(datas) if d]
+    # ctypes releases the GIL: the buffers' RLE1 runs on parallel threads.
+    with ThreadPoolExecutor(max(1, min(len(todo), os.cpu_count() or 1))) as pool:
+        items = list(zip(todo, pool.map(
+            lambda i: oracle.bzip2_rle1(datas[i], level), todo)))
+    stage_hook("rle1")
+    if not items:
+        return results
+    blocks = stream_blocks([p for _, p in items])
+    pos, parts = 0, []
+    for g in range(0, len(blocks), MAX_DISPATCH_BLOCKS):
+        w0, words, off, tb, pos = _encode_dispatch(
+            blocks[g:g + MAX_DISPATCH_BLOCKS], pos, device, stage_hook)
+        parts.append((w0, words, off, tb))
+    layout = np.zeros(max(w0 + w.size for w0, w, _, _ in parts), np.uint32)
+    for w0, words, _, _ in parts:
+        layout[w0:w0 + words.size] |= words
+    body = layout.astype(">u4").view(np.uint8)
+    body_off = np.concatenate([p[2] for p in parts])
+    tb = np.concatenate([p[3] for p in parts])
+    hdr = b"BZh" + bytes([0x30 + level])
+    b0 = 0
+    for i, (_, _, ln, crc) in items:
+        nb = ln.size
+        start_bit = int(body_off[b0]) - 32              # word-aligned
+        end_bit = int(body_off[b0 + nb - 1] + tb[b0 + nb - 1])
+        buf = bytearray(body[start_bit // 8:(end_bit + 7) // 8].tobytes())
+        buf[0:4] = hdr
+        results[i] = _splice_eos(buf, end_bit - start_bit, crc)
+        b0 += nb
+    stage_hook("frame")
+    return results
+
+
+def compress(data: bytes, level: int = 9, device="cuda") -> bytes:
+    return compress_many([data], level, device)[0]

@@ -30,6 +30,17 @@ exactly against either.
 
 Outputs (visited, mlen, mdist) are [NB, N] int32: visited = mlen + 1 at
 every position where a token starts, 0 elsewhere.
+
+Spec v3, interleaved (the reference's parse_extend_pallas_v3w; no codec
+path calls it, in either package): the same walk reading the raw screen
+words, without marks or cap_at. `parse_extend_v3w_plain` is the plain
+version, `parse_extend_v3w` the wrapper (CUDA kernel
+`tpz_torch/csrc/parse_v3w_walk.cu` on a card).
+
+Greedy reach (the reference's greedy_parse and its _parse_pallas; no
+codec path calls them either): `greedy_parse` follows p -> p + step(p)
+through `reach_walk`, whose plain version is the pointer doubling
+`_reach_doubling` and whose kernel is `tpz_torch/csrc/reach_walk.cu`.
 """
 
 from __future__ import annotations
@@ -322,6 +333,137 @@ def parse_extend_v3(pk1, pk2, cap_at, words, block_len, window,
 
 
 parse_extend_v3.launches = 0
+
+
+def _v3w_cap_at(block_len, N, max_match, restart):
+    """The cap v3w's state machine computes at every position q:
+    min(max_match, block_len - q, restart - q mod restart)."""
+    pos = torch.arange(N, device=block_len.device, dtype=torch.int32)
+    return torch.minimum(torch.clamp(block_len[:, None] - pos, max=max_match),
+                         restart - pos % restart)
+
+
+def parse_extend_v3w_plain(pk1, pk2, words, block_len, window,
+                           max_match=258, screen_bytes=16, too_far=4096,
+                           lazy=False, max_lazy=258, restart=0, group=16):
+    """The plain version of the interleaved spec-v3 walk (the reference's
+    parse_extend_pallas_v3w): the walk reads the raw screen words, with no
+    mark precompute and no cap_at input. Its cap is a function of the
+    position alone, so it is derived here as v3w derives it, and the
+    walk is the v3z core at n_extend=1: v3w never loads the second
+    candidate (its s2v/j2v stay 0, and the cap is at least 1, so the
+    candidate-2 branch is never taken; R4). No sub-walk reaches past
+    block_len, so every output is 0 there, as v3w's."""
+    NB, N = pk1.shape
+    if not restart or restart >= N:
+        restart = N
+    cap_at = _v3w_cap_at(block_len, N, max_match, restart)
+    return parse_extend_v3z(pk1, pk2, cap_at, words, block_len, window,
+                            max_match, screen_bytes, too_far, lazy, max_lazy,
+                            restart, n_extend=1, group=group)
+
+
+def parse_extend_v3w(pk1, pk2, words, block_len, window, max_match=258,
+                     screen_bytes=16, too_far=4096, lazy=False, max_lazy=258,
+                     restart=0):
+    """The interleaved spec-v3 walk: the plain version for CPU tensors, the
+    CUDA kernel (csrc/parse_v3w_walk.cu, one thread per restart sub-walk)
+    for CUDA tensors. pk1, pk2 [NB, N] int32 block-local screen words;
+    words [NB, M] int32; block_len [NB] int32; all contiguous. Returns
+    (visited, mlen, mdist) [NB, N] int32. The reference's nblk (blocks per
+    grid step) and W (sub-walks interleaved in one kernel body) only
+    spread its walks over a TPU core and change no result: they have no
+    counterpart."""
+    if pk1.device.type == "cpu":
+        return parse_extend_v3w_plain(pk1, pk2, words, block_len, window,
+                                      max_match, screen_bytes, too_far, lazy,
+                                      max_lazy, restart)
+    if pk1.device.type != "cuda":
+        raise ValueError(f"v3w parse walk: unsupported device {pk1.device}")
+    NB, N = pk1.shape
+    M = words.shape[1]
+    if not restart or restart >= N:
+        restart = N
+    for name, t, shape in (("pk1", pk1, (NB, N)), ("pk2", pk2, (NB, N)),
+                           ("words", words, (NB, M)),
+                           ("block_len", block_len, (NB,))):
+        if (t.device != pk1.device or t.dtype != torch.int32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"v3w parse walk: {name} must be a contiguous int32 tensor "
+                f"of shape {shape} on {pk1.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if N % restart or M < N + window + max_match:
+        raise ValueError(f"v3w parse walk: bad geometry N={N} M={M} "
+                         f"restart={restart} window={window}")
+    out = torch.zeros((NB, N), dtype=torch.int32, device=pk1.device)
+    from tpz_torch.kernels import _build
+
+    with torch.cuda.device(pk1.device):
+        rc = _build.lib().tpz_parse_v3w_walk(
+            pk1.data_ptr(), words.data_ptr(), block_len.data_ptr(),
+            out.data_ptr(), NB, N, M, window, restart, max_match,
+            screen_bytes, too_far, int(lazy), max_lazy,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"v3w parse walk kernel launch failed: cudaError {rc}")
+    parse_extend_v3w.launches += 1
+    return _outputs(out)
+
+
+parse_extend_v3w.launches = 0
+
+
+# ------------------------------------------------------------ greedy reach
+
+MIN_MATCH = 3
+
+
+def reach_walk(step: torch.Tensor) -> torch.Tensor:
+    """The greedy reach mask (the reference's _parse_pallas): follow p ->
+    p + step[p] from p = 0 while p < N. step [NB, N] int32 (a step below 1
+    counts as 1) -> [NB, N] int32, 1 at every position the chain visits.
+    A CPU tensor runs the pointer doubling (_reach_doubling), a CUDA
+    tensor the kernel csrc/reach_walk.cu (one thread per row)."""
+    if step.device.type == "cpu":
+        return _reach_doubling(torch.clamp(step.to(torch.int64),
+                                           min=1)).to(torch.int32)
+    if step.device.type != "cuda":
+        raise ValueError(f"reach walk: unsupported device {step.device}")
+    if step.dtype != torch.int32 or step.dim() != 2 or not step.is_contiguous():
+        raise ValueError(f"reach walk: step must be a contiguous [NB, N] "
+                         f"int32 tensor, got {step.dtype} {tuple(step.shape)}")
+    NB, N = step.shape
+    out = torch.zeros((NB, N), dtype=torch.int32, device=step.device)
+    from tpz_torch.kernels import _build
+
+    with torch.cuda.device(step.device):
+        rc = _build.lib().tpz_reach_walk(
+            step.data_ptr(), out.data_ptr(), NB, N,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"reach walk kernel launch failed: cudaError {rc}")
+    reach_walk.launches += 1
+    return out
+
+
+reach_walk.launches = 0
+
+
+def greedy_parse(match_len, match_dist, block_len):
+    """The greedy parse over per-position matches (the reference's
+    greedy_parse): match_len [NB, N] int32 (0 where no match; match_dist
+    is not read, as in the reference), block_len [NB] int32. Returns
+    (is_token [NB, N] bool, token_idx [NB, N] int32 dense token index,
+    valid where is_token, ntokens [NB] int32). The reference's use_pallas
+    has no counterpart: the device of match_len picks the route, as in
+    reach_walk."""
+    NB, N = match_len.shape
+    pos = torch.arange(N, device=match_len.device, dtype=torch.int32)
+    step = torch.where(match_len >= MIN_MATCH, match_len, 1).to(torch.int32)
+    is_token = (reach_walk(step.contiguous()) > 0) & (pos < block_len[:, None])
+    cum = torch.cumsum(is_token, dim=1, dtype=torch.int32)
+    return is_token, cum - 1, cum[:, -1]
 
 
 # ------------------------------------------------------------ spec v1

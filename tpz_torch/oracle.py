@@ -4,7 +4,9 @@ The DEFLATE encode path calls its encoder only for a buffer above
 MAX_DEVICE_SPAN, as the reference does; otherwise that encoder is here
 for byte-identity checks (tests and `chip_smoke.py`). The LZHUF encode
 path calls its host planner (`lzhuf_plan`: code lengths, canonical codes
-and block headers), as the reference does. The decode paths call its
+and block headers), as the reference does. The bzip2 encode path calls its
+RLE1 and block split (`bzip2_rle1`), as the reference does. The decode
+paths call its
 host scans, as the reference does: the DEFLATE header scan and segment
 indexer, the LZHUF token indexer and the bzip2 header scan, which read
 block headers and cut streams without writing output; the bzip2 RLE1
@@ -168,6 +170,12 @@ def lib() -> ctypes.CDLL:
         L.tpz_bzip2_rle1_inverse.restype = ctypes.c_int
         L.tpz_bzip2_rle1_inverse.argtypes = [
             u8p, i64p, i64p, u32p, ctypes.c_int32, u8p, szp]
+        L.tpz_bzip2_rle1.restype = ctypes.c_int
+        L.tpz_bzip2_rle1.argtypes = [
+            u8p, ctypes.c_size_t, ctypes.c_int32, u8p, szp, i64p, i64p,
+            u32p, i32p]
+        L.tpz_bwt_ref.restype = ctypes.c_uint32
+        L.tpz_bwt_ref.argtypes = [u8p, ctypes.c_size_t, u8p]
         _LIB = L
     return _LIB
 
@@ -466,6 +474,40 @@ def bzip2_encode(data, level: int = 9) -> bytes:
                                 _ptr(out, ctypes.c_uint8), ctypes.byref(n))
     errors.raise_for_status(st, "bzip2_encode")
     return out[: n.value].tobytes()
+
+
+def bzip2_rle1(data, level: int = 9):
+    """Host RLE1 and block split for the device encode (cpp
+    Bzip2Rle1Blocks). Returns (rle_bytes, block_off, block_len,
+    block_crc): int64 offsets and lengths into rle_bytes, uint32 CRCs of
+    each block's input bytes."""
+    a = _u8(data)
+    cap = 2 * a.size + 4096
+    rle = np.zeros(cap, dtype=np.uint8)
+    rle_len = ctypes.c_size_t(cap)
+    cap_blocks = max(4, 2 + a.size // 100000)
+    off = np.zeros(cap_blocks, dtype=np.int64)
+    ln = np.zeros(cap_blocks, dtype=np.int64)
+    crc = np.zeros(cap_blocks, dtype=np.uint32)
+    nb = ctypes.c_int32(cap_blocks)
+    st = lib().tpz_bzip2_rle1(
+        _ptr(a, ctypes.c_uint8), a.size, level, _ptr(rle, ctypes.c_uint8),
+        ctypes.byref(rle_len), _ptr(off, ctypes.c_int64),
+        _ptr(ln, ctypes.c_int64), _ptr(crc, ctypes.c_uint32),
+        ctypes.byref(nb))
+    errors.raise_for_status(st, "bzip2_rle1")
+    k = nb.value
+    return rle[:rle_len.value], off[:k], ln[:k], crc[:k]
+
+
+def bwt_ref(data) -> tuple[np.ndarray, int]:
+    """The oracle's reference rotation-sort BWT: (last column, origin
+    pointer)."""
+    a = _u8(data)
+    out = np.zeros(max(1, a.size), dtype=np.uint8)
+    orig = lib().tpz_bwt_ref(_ptr(a, ctypes.c_uint8), a.size,
+                             _ptr(out, ctypes.c_uint8))
+    return out[:a.size], int(orig)
 
 
 def bzip2_decode(data) -> bytes:
