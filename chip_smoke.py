@@ -27,7 +27,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
               TZ-indexed member and the segmented layout of a phase-4
               gzip body (the headline dispatch's own input), both kernels
               timed there beside their plain versions (the copy machine's
-              launch alone and through its wrapper)
+              launch alone and through its wrapper); the plain walk runs
+              on host copies of the walk's inputs
   7. decode-slice
               api.decompress_many on the 2 x 16 MiB gzip blobs of phase 4,
               api.decompress on a 16 MiB TZ-indexed member, a stdlib gzip
@@ -47,8 +48,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
               version (exact markers) and the copy machine at dist_bias 1
               against the plain resolve (exact bytes) on the segmented
               layout of 1 MiB lh5 and lh7 streams and of a 16 MiB lh5
-              stream of the headline batch; each kernel timed beside its
-              plain version at the headline shape
+              stream of the headline batch (the plain token walk on host
+              copies of its inputs); each kernel timed beside its plain
+              version at the headline shape
  10. lzhuf-slice
               api.compress_many on the headline batch at lh5, one 16 MiB
               buffer of it at lh7 and 1 MiB at lh4 and lh6, device "cuda":
@@ -67,13 +69,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
               its blobs under torch.profiler: host wall time, device busy
               time (the union of the kernel, memcpy and memset intervals
               inside the call), the device's idle share (1 - busy / wall)
-              and the device ops that took the most time
+              the device time of each CUDA kernel (a wrapper's .kernels)
+              of the path's wrappers and the device ops that took the most
+              time; the trace must hold every CUDA kernel of each wrapper
+              the call launched
  13. bzip2-kernels
               the bzip2 symbol-walk kernel against its plain torch version
-              (exact records and meta) on small stdlib and oracle streams
-              at levels 1 and 9 and on a corrupted one; the iBWT kernels
-              against their plain version (exact bytes and flags) on those
-              blocks, a periodic block and the headline batch's last
+              (exact records and meta; the plain walk on host copies of
+              the inputs) on small stdlib and oracle streams at levels 1
+              and 9 and on a corrupted one, then on three 64 KiB level-1
+              blocks whose records passes wrap their ring several times,
+              the last corrupted three quarters in, all at the default
+              MTF^-1
+              segment length (bzip2_walk.REC_SEG records) and at 32, so
+              that cuts fall inside runs and mid-block; the iBWT kernels
+              against their plain version (exact bytes and flags) on the
+              small blocks, a periodic block and the headline batch's last
               columns (the 2 x 16 MiB corpus.mixed batch, oracle bzip2
               level 9), all at the decode's splitter stride; both kernels
               timed at the headline shape
@@ -87,13 +98,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
  15. bzip2-timing
               warm median of 3 decompress_many calls on the headline blobs
               (MB/s of plaintext), a per-stage split from CUDA events, and
-              one call under torch.profiler (device busy time and idle
-              share, as phase 12)
+              one call under torch.profiler (as phase 12: device busy
+              time, idle share, the time of each of the walk's kernels
+              (records, labels, lists, bytes) and the iBWT's, and the
+              trace must hold every kernel of each wrapper the call
+              launched)
  16. bzip2-encode-kernels
               the MTF-encode kernel against its plain version (exact
               ranks) on the symbols and the selectors (alpha 6) of small
               buffers and of the headline batch at level 9, built by the
-              encode's own stages; the headline's calls timed
+              encode's own stages, the small ones at the default segment
+              length (mtf.MTF_SEG symbols) and at 32; the headline's calls
+              timed
  17. bzip2-encode-slice
               api.compress_many on the headline batch at level 9, device
               "cuda": the streams equal the oracle's blobs of phase 13, bz2
@@ -105,7 +121,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
  18. bzip2-encode-timing
               warm median of 3 compress_many calls on the timing batches
               (MB/s), a per-stage split from CUDA events, and one call
-              under torch.profiler
+              under torch.profiler (as phase 15; the MTF's kernels last,
+              keys and walk, for the symbols and the selectors together)
  19. parse-kernels-8-9
               the v3w walk kernel against its plain version on 1 MiB of
               corpus.mixed and corpus.repetitive at levels 1 and 6
@@ -115,7 +132,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
               kernel equals the pointer doubling there; each called
               through its public function with its count set to 0, both
               timed at the headline
-A JSON record of the kernels (launches from each one's main-path call:
+The last phase line gives the script's seconds so far. A JSON record of
+the kernels (launches from each one's main-path call:
 gzip encode, gzip decode, lh5 encode, lh5 decode, bzip2 decode, the
 public functions of #8 and #9, bzip2 encode; times and bounds at the
 headline shapes) comes before the card's name and power limit; the last
@@ -169,15 +187,32 @@ OPS_V1_EXTEND = 16         # ... one 4-byte extension compare
 OPS_V3_TOKEN = 15          # parse_walk.cu: a token on the mark fast path
 OPS_COPY_POSITION = 16     # resolve_walk.cu: window state + phase 2 check
 OPS_COPY_MATCHED = 12      # ... phase 1's copy of one matched position
-OPS_BZIP2_TRIP = 60        # bzip2_walk.cu: one trip (a symbol, or a held one)
-OPS_BZIP2_MTF = 24         # ... a move-to-front and its record
 OPS_IBWT_STEP = 17         # ibwt_walk.cu: a node in pass 1 and in pass 2
 OPS_IBWT_CHAIN = 45        # ... a chain's set-up in both passes and stitch
-OPS_MTF_SYMBOL = 40        # mtf_encode.cu: a symbol's rank and move
 OPS_REACH_STEP = 8         # reach_walk.cu: a visited position
 OPS_V3W_TOKEN = 36         # parse_v3w_walk.cu: a token through TOK and FIN
 OPS_V3W_EXTEND = 12        # ... one 4-byte extension compare
+# The bzip2 symbol walk (#6) and the MTF encode are counted from the work
+# of the function itself, whatever the design: a move-to-front moves as
+# many list entries as the symbol's rank, which this run's data gives.
+OPS_HUFFMAN_SYMBOL = 5     # #6: peek the code's bits, table load, length,
+                           # bit position, group count
+OPS_RLE2_RUN = 2           # #6: a run symbol's shifted add to its run
+OPS_MTF_INVERSE = 4        # #6: a record's read at its rank, write at the
+                           # front, its compose and store
+OPS_MTF_ENCODE = 4         # MTF: a symbol's load, rank lookup, write at
+                           # the front and store of its rank
+OPS_MTF_MOVE = 1           # both: each list entry moved
 BZIP2_LEVEL = 9
+# The MTF kernels' second segment length on the small inputs: short enough
+# that segment cuts fall inside runs and mid-block.
+MTF_SEG_CHECK = 32
+# Phase 13's long blocks, level 1: each runs its records pass through the
+# ring of csrc/bzip2_walk.cu (kRing entries between its decoder thread and
+# its RLE2 warp) several times over. The plain walk runs them on the host
+# (one Python trip per symbol, ~2 ms each on the card).
+LONG_BLOCK_BYTES = 64 * 1024
+BZIP2_RING = 8192
 
 
 def _mixed(args):
@@ -268,6 +303,24 @@ def timed(fn, reps: int = 1):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / reps
+
+
+def on_host(fn, *args):
+    """fn(*args) on host copies of its tensor arguments, on one torch
+    thread; its tensor results come back to the card. The plain walks take
+    one Python trip per token or symbol, each a few tiny ops: on the host
+    a trip costs a fraction of what its launches cost on the card, and
+    intra-op threads only slow it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                   for a in args))
+    finally:
+        torch.set_num_threads(threads)
+    if isinstance(out, tuple):
+        return tuple(o.cuda() for o in out)
+    return out.cuda()
 
 
 def drive(phase, path, fn, counters):
@@ -475,9 +528,10 @@ def dense_markers(t, markers):
 
 
 def compare_walk(t):
-    """Symbol-walk kernel vs plain on the same CUDA tensors: (markers,
-    max abs difference, kernel ms, plain ms), each timed on its first
-    call. Raises unless the markers are equal."""
+    """Symbol-walk kernel vs plain on the same CUDA tensors (the plain
+    walk on host copies of them): (markers, max abs difference, kernel
+    ms, plain ms), each timed on its first call. Raises unless the markers
+    are equal."""
     from tpz_torch.kernels import inflate_pipeline as ip
 
     args = ip._walk_args(t)
@@ -485,7 +539,7 @@ def compare_walk(t):
     got, ms = timed(lambda: ip.symbol_walk(*args))
     if ip.symbol_walk.launches != before + 1:
         raise RuntimeError("symbol walk wrapper did not launch its kernel")
-    want, plain_ms = timed(lambda: ip.symbol_walk_plain(*args))
+    want, plain_ms = timed(lambda: on_host(ip.symbol_walk_plain, *args))
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if err:
         raise RuntimeError(f"symbol-walk kernel disagrees with plain: {err}")
@@ -722,9 +776,10 @@ def lzhuf_walk_inputs(body, n, method):
 
 
 def compare_lzhuf_walk(t):
-    """LZHUF token-walk kernel vs plain on the same CUDA tensors:
-    (markers, max abs difference, kernel ms, plain ms), each timed on its
-    first call. Raises unless the markers are equal."""
+    """LZHUF token-walk kernel vs plain on the same CUDA tensors (the plain
+    walk on host copies of them): (markers, max abs difference, kernel ms,
+    plain ms), each timed on its first call. Raises unless the markers are
+    equal."""
     from tpz_torch.kernels import lzhuf_walk as lw
 
     args = lw._walk_args(t)
@@ -732,7 +787,7 @@ def compare_lzhuf_walk(t):
     got, ms = timed(lambda: lw.lzhuf_walk(*args))
     if lw.lzhuf_walk.launches != before + 1:
         raise RuntimeError("lzhuf walk wrapper did not launch its kernel")
-    want, plain_ms = timed(lambda: lw.lzhuf_walk_plain(*args))
+    want, plain_ms = timed(lambda: on_host(lw.lzhuf_walk_plain, *args))
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if err:
         raise RuntimeError(f"lzhuf-walk kernel disagrees with plain: {err}")
@@ -885,17 +940,19 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def device_busy(events, t0_us: float, t1_us: float):
-    """(busy ms, {op name: ms}) of the device events of a chrome trace
-    that lie in [t0_us, t1_us]."""
+    """(busy ms, {op name: ms}) of the device events of a chrome trace,
+    each clipped to [t0_us, t1_us]: an event the device clock places
+    partly outside the host annotation still counts for its part inside."""
     spans, by_name = [], {}
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
             continue
-        a, d = float(e["ts"]), float(e.get("dur", 0))
-        if a < t0_us or a + d > t1_us:
+        a = max(float(e["ts"]), t0_us)
+        b = min(float(e["ts"]) + float(e.get("dur", 0)), t1_us)
+        if b <= a:
             continue
-        spans.append((a, a + d))
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + d / 1e3
+        spans.append((a, b))
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + (b - a) / 1e3
     busy, end = 0.0, -1.0
     for a, b in sorted(spans):
         if b <= end:
@@ -905,9 +962,46 @@ def device_busy(events, t0_us: float, t1_us: float):
     return busy / 1e3, by_name
 
 
-def profile_call(fn, label: str, phase: str = "lzhuf-profile") -> None:
+def trace_events(prof) -> list:
+    """The chrome-trace events of a finished torch.profiler run."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def kernel_events(events) -> list:
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def names_kernel(event_name: str, kernel: str) -> bool:
+    """Whether a trace's kernel event names the CUDA kernel `kernel` (the
+    trace gives a C++ kernel its namespace and signature)."""
+    return event_name == kernel or f"{kernel}(" in event_name
+
+
+def missing_kernels(events, counters) -> list:
+    """The CUDA kernels (each wrapper's .kernels) of the wrappers in
+    `counters` that launched, which no kernel event of the trace names."""
+    names = [e["name"] for e in kernel_events(events)]
+    return [k for c in counters.values() if c.launches
+            for k in c.kernels
+            if not any(names_kernel(n, k) for n in names)]
+
+
+def profile_call(fn, label: str, counters: dict,
+                 phase: str = "lzhuf-profile") -> None:
+    """One call of fn under torch.profiler: logs its wall time, device
+    busy time, idle share, the device time of each CUDA kernel of the
+    wrappers in `counters` (name -> wrapper) and the top device ops.
+    Raises if the trace holds no device time, or lacks a kernel of a
+    wrapper that the call launched."""
     from torch.profiler import ProfilerActivity, profile
 
+    for c in counters.values():
+        c.launches = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -916,32 +1010,46 @@ def profile_call(fn, label: str, phase: str = "lzhuf-profile") -> None:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+    events = trace_events(prof)
     mark = next(e for e in events if e.get("name") == label
                 and e.get("cat") == "user_annotation")
     t0_us = float(mark["ts"])
     busy_ms, by_name = device_busy(events, t0_us, t0_us + float(mark["dur"]))
     if busy_ms <= 0:
         raise RuntimeError(f"{label}: the trace holds no device time")
+    launched = {name: c.launches for name, c in counters.items()}
+    if min(launched.values()) < 1:
+        raise RuntimeError(f"{label}: a wrapper did not launch: {launched}")
+    missing = missing_kernels(events, counters)
+    if missing:
+        names = sorted({e["name"][:60] for e in kernel_events(events)})
+        raise RuntimeError(f"{label}: launched kernels missing from the "
+                           f"trace: {missing}; the trace's {len(names)} "
+                           f"kernel names: {names}")
+    per_kernel = {k: round(sum(ms for n, ms in by_name.items()
+                               if names_kernel(n, k)), 3)
+                  for c in counters.values() for k in c.kernels}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(phase, call=label, wall_ms=f"{wall_ms:.2f}",
         busy_ms=f"{busy_ms:.2f}", idle_share=f"{1 - busy_ms / wall_ms:.4f}",
+        launches=launched, kernels_in_trace=True,
+        kernel_ms=json.dumps(per_kernel),
         top=json.dumps({k[:60]: round(v, 3) for k, v in top}))
 
 
 def phase_lzhuf_profile(batch, blobs) -> None:
     from tpz_torch import api
+    from tpz_torch.kernels import lzhuf_walk as lw
+    from tpz_torch.kernels import parse
+    from tpz_torch.kernels import resolve_walk as rw
 
     profile_call(lambda: api.compress_many(batch, LZHUF_METHOD,
                                            device="cuda"),
-                 f"{LZHUF_METHOD}-encode")
+                 f"{LZHUF_METHOD}-encode", {"parse_v1": parse.parse_extend_v1})
     profile_call(lambda: api.decompress_many(blobs, LZHUF_METHOD,
                                              device="cuda"),
-                 f"{LZHUF_METHOD}-decode")
+                 f"{LZHUF_METHOD}-decode",
+                 {"walk": lw.lzhuf_walk, "resolve": rw.resolve_copy_machine})
 
 
 def bzip2_layout(blobs):
@@ -962,21 +1070,26 @@ def bzip2_layout(blobs):
 
 
 def compare_bzip2_walk(t, S):
-    """bzip2 symbol-walk kernel vs plain on the same CUDA tensors: (recs,
-    meta, max abs difference, kernel ms, plain ms), each timed on its
-    first call. Raises unless records and meta are equal."""
+    """bzip2 symbol-walk kernels vs plain on the same CUDA tensors (the
+    plain walk on host copies of them), the kernels at the default MTF^-1
+    segment length (bzip2_walk.REC_SEG) and at MTF_SEG_CHECK: (recs, meta,
+    max abs difference, kernel ms, plain ms), each timed on its first
+    call. Raises unless records and meta are equal."""
     from tpz_torch.kernels import bzip2_walk as bw
 
     args = [t[k] for k in bw.WALK_ARGS]
     before = bw.bzip2_walk.launches
     (recs, meta), ms = timed(lambda: bw.bzip2_walk(*args, S))
-    if bw.bzip2_walk.launches != before + 1:
-        raise RuntimeError("bzip2 walk wrapper did not launch its kernel")
-    (precs, pmeta), plain_ms = timed(lambda: bw.bzip2_walk_plain(*args, S))
-    err = max(int((recs.long() - precs.long()).abs().max()),
-              int((meta.long() - pmeta.long()).abs().max()))
+    recs32, meta32 = bw.bzip2_walk(*args, S, mtf_seg=MTF_SEG_CHECK)
+    if bw.bzip2_walk.launches != before + 2:
+        raise RuntimeError("bzip2 walk wrapper did not launch its kernels")
+    (precs, pmeta), plain_ms = timed(
+        lambda: on_host(bw.bzip2_walk_plain, *args, S))
+    err = max(int((r.long() - precs.long()).abs().max()
+                  + (m.long() - pmeta.long()).abs().max())
+              for r, m in ((recs, meta), (recs32, meta32)))
     if err:
-        raise RuntimeError(f"bzip2-walk kernel disagrees with plain: {err}")
+        raise RuntimeError(f"bzip2-walk kernels disagree with plain: {err}")
     return recs, meta, err, ms, plain_ms
 
 
@@ -1008,24 +1121,49 @@ def compare_ibwt(args, seg):
     return out, flag, err, ms, plain_ms
 
 
-def bzip2_walk_ops(recs, meta) -> int:
-    """The symbol walk's operations on its records: a trip per record,
-    per run symbol of a run record (count >= 2: floor(log2(count + 1))
-    symbols) and per block's end, and a move-to-front per count-1 record
-    (a count-1 run record counts as a literal, so the bound stays a least
-    time)."""
+def bzip2_symbols(recs, meta):
+    """([NB] symbols each block's walk consumed, [NB] of them run
+    symbols): a literal is one symbol, a run record of count c its
+    floor(log2(c + 1)) RUNA/RUNB digits (count 1 is one symbol either way,
+    counted a literal), a block that ends well its end-of-block."""
     live = torch.arange(recs.shape[1], device=recs.device)[None, :] \
         < meta[:, :1]
     cnt = torch.where(live, recs.long() >> 8, 0)
-    runs = torch.where(cnt >= 2, torch.floor(torch.log2(
-        (cnt + 1).double())).long(), 0)
-    trips = int(meta[:, 0].sum()) + int(runs.sum()) + recs.shape[0]
-    return trips * OPS_BZIP2_TRIP + int((cnt == 1).sum()) * OPS_BZIP2_MTF
+    # floor(log2(c + 1)) in integers: a float log2 on the card can round
+    # an exact power of two down.
+    digits = sum(((cnt + 1) >> k) > 0 for k in range(1, 32)).long()
+    runs = torch.where(cnt >= 2, digits, 0).sum(1)
+    return digits.sum(1) + (meta[:, 1] == 0).long(), runs
 
 
-def phase_bzip2_kernels(small, blobs):
+def bzip2_walk_ops(recs, meta, mtf_init, n_used) -> int:
+    """#6's operations on this run's records (count << 8 | byte): a
+    Huffman step per symbol, an add per run symbol, and per record the
+    MTF^-1's read, front write and store, and its rank's list entries
+    moved. The ranks come back from the bytes by the plain MTF encode, each
+    byte relabelled by its place in the block's list of used bytes (the
+    first n_used of mtf_init), so that the encode starts from the identity
+    list: a run record's byte is the list head, rank 0."""
+    from tpz_torch.kernels import mtf
+
+    symbols, runs = bzip2_symbols(recs, meta)
+    nrec = meta[:, 0].to(torch.int32)
+    pos = torch.arange(256, device=recs.device).expand(recs.shape[0], 256)
+    used = torch.where(pos < n_used.long()[:, None], mtf_init.long(), 256)
+    place = torch.zeros((recs.shape[0], 257), dtype=torch.int64,
+                        device=recs.device).scatter_(1, used, pos)
+    ranks = mtf.mtf_ranks_plain(place.gather(1, recs.long() & 255).int(),
+                                nrec)
+    return (int(symbols.sum()) * OPS_HUFFMAN_SYMBOL
+            + int(runs.sum()) * OPS_RLE2_RUN
+            + int(nrec.sum()) * OPS_MTF_INVERSE
+            + int(ranks.sum()) * OPS_MTF_MOVE)
+
+
+def phase_bzip2_kernels(small, long_blobs, blobs):
     """#6 and #7 against their plain versions on the small streams, a
-    periodic block and (the iBWT) the headline batch; both timed at the
+    periodic block and (the iBWT) the headline batch, #6 also on the long
+    blocks of `long_blobs` (the plain walk on the host); both timed at the
     headline shape. Returns their kernel-line rows."""
     from tpz_torch import oracle
     from tpz_torch.kernels import bzip2_walk as bw
@@ -1047,7 +1185,23 @@ def phase_bzip2_kernels(small, blobs):
             kv = {"ibwt_max_abs_err": err_i, "flags": flag.tolist()}
         log("bzip2-kernels", input=name, blocks=t["sw"].shape[0],
             records=meta[:, 0].tolist(), err=meta[:, 1].tolist(),
-            walk_max_abs_err=err_w, plain_ms=f"{plain_ms:.1f}", **kv)
+            mtf_segs=[bw.REC_SEG, MTF_SEG_CHECK], walk_max_abs_err=err_w,
+            plain_ms=f"{plain_ms:.1f}", **kv)
+    # Long blocks: every records pass wraps its ring several times, and
+    # the corrupted block's error falls after it has.
+    t, N, S = bzip2_layout(list(long_blobs.values()))
+    recs, meta, e, _, long_plain_ms = compare_bzip2_walk(t, S)
+    err_w = max(err_w, e)
+    symbols, _ = bzip2_symbols(recs, meta)
+    errs = (meta[:, 1] & 1023).tolist()
+    if (int(symbols.min()) < 3 * BZIP2_RING or any(errs[:-1])
+            or not errs[-1]):
+        raise RuntimeError(f"long blocks: symbols {symbols.tolist()}, err "
+                           f"{errs}; want >= 3 rings each, the last in error")
+    log("bzip2-kernels", input=list(long_blobs), N=N, S=S,
+        symbols=symbols.tolist(), records=meta[:, 0].tolist(), err=errs,
+        ring=BZIP2_RING, mtf_segs=[bw.REC_SEG, MTF_SEG_CHECK],
+        walk_max_abs_err=err_w, plain_ms=f"{long_plain_ms:.1f}")
     # A periodic block: the LF map splits into cycles, both flag it.
     t, N, S = bzip2_layout([oracle.bzip2_encode(b"abc" * 4000, 1)])
     recs, meta, _, _, _ = compare_bzip2_walk(t, S)
@@ -1069,14 +1223,16 @@ def phase_bzip2_kernels(small, blobs):
     walk_bytes = (slice_bytes + int(nrec.sum()) * 4
                   + sum(args[k].numel() * args[k].element_size()
                         for k in (0, 1, 2, 4, 5, 6)) + meta.numel() * 4)
-    walk_bound = bound_bytes_ops(walk_bytes, bzip2_walk_ops(recs, meta))
+    walk_bound = bound_bytes_ops(walk_bytes, bzip2_walk_ops(
+        recs, meta, t["mtf_init"], t["n_used"]))
     log("bzip2-kernels", input="headline-2x16MiB-l9", blocks=len(nrec),
         N=N, S=S, records=int(nrec.sum()), records_max=int(nrec.max()),
         walk_ms=f"{walk_ms:.3f}",
         walk_first_call_ms=f"{cold_ms:.3f}",
         walk_plain_ms=f"{walk_plain_ms:.3f}",
         walk_plain_shape=walk_plain_at,
-        walk_bound_ms=f"{walk_bound['bound_ms']:.4f}")
+        walk_bound_ms=f"{walk_bound['bound_ms']:.4f}",
+        walk_bound_by=walk_bound["bound_by"], rec_seg=bw.REC_SEG)
 
     args = ibwt_inputs(t, recs, meta, N)
     del recs, t
@@ -1150,6 +1306,8 @@ def phase_bzip2_slice(batch, blobs, stdlib_blob, cat, cat_want):
 def phase_bzip2_timing(batch, blobs, smi) -> None:
     from tpz_torch import api
     from tpz_torch.codecs import bzip2
+    from tpz_torch.kernels import bzip2_walk as bw
+    from tpz_torch.kernels import ibwt_walk as iw
 
     total = sum(len(d) for d in batch)
     median, times = warm_median(lambda _: api.decompress_many(
@@ -1161,15 +1319,17 @@ def phase_bzip2_timing(batch, blobs, smi) -> None:
         blobs, device="cuda", stage_hook=hook))
     log("bzip2-timing", **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
     profile_call(lambda: api.decompress_many(blobs, "bzip2", device="cuda"),
-                 "bzip2-decode", phase="bzip2-timing")
+                 "bzip2-decode", {"walk": bw.bzip2_walk, "ibwt": iw.ibwt},
+                 phase="bzip2-timing")
 
 
 def bzip2_inputs(batch):
     """The bzip2 phases' streams: the headline batch at oracle level 9, a
     16 MiB stdlib level-9 stream, a two-stream concatenation (stdlib level
-    1 then oracle level 9) and the small streams of phase 13 (about 5,000
+    1 then oracle level 9), the small streams of phase 13 (about 5,000
     symbols a block: the plain walk takes one trip per symbol, about 2 ms
-    each on the card), one with zeroed symbol bits."""
+    each on the card), one with zeroed symbol bits, and its long level-1
+    blocks, the last with symbol bits zeroed three quarters in."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tpz_torch import oracle
@@ -1194,7 +1354,16 @@ def bzip2_inputs(batch):
         "oracle-l9-text-8KiB": oracle.bzip2_encode(
             corpus.text(8192, seed=24), 9),
         "corrupt-stdlib-l1-text-8KiB": bytes(corrupt)}
-    return blobs, stdlib, cat, small
+    mixed = oracle.bzip2_encode(corpus.mixed(LONG_BLOCK_BYTES, seed=41), 1)
+    corrupt = bytearray(mixed)
+    at = len(corrupt) * 3 // 4
+    corrupt[at:at + 100] = bytes(100)
+    long_blobs = {
+        "stdlib-l1-text-64KiB": bz2.compress(
+            corpus.text(LONG_BLOCK_BYTES, seed=42), 1),
+        "oracle-l1-mixed-64KiB": mixed,
+        "corrupt-oracle-l1-mixed-64KiB": bytes(corrupt)}
+    return blobs, stdlib, cat, small, long_blobs
 
 
 def bzip2_encode_front(datas):
@@ -1227,20 +1396,22 @@ def bzip2_encode_front(datas):
     return (v, n), seen[0], rounds
 
 
-def compare_mtf(v, n, alpha):
-    """MTF kernel vs plain on the same CUDA tensors: (max abs difference,
+def compare_mtf(v, n, alpha, segs=()):
+    """MTF kernels vs plain on the same CUDA tensors, the kernels at the
+    default segment length and at each of `segs`: (max abs difference,
     kernel ms, plain ms), each timed on its first call. Raises unless the
     ranks are equal."""
     from tpz_torch.kernels import mtf
 
     before = mtf.mtf_ranks.launches
     got, ms = timed(lambda: mtf.mtf_ranks(v, n, alpha))
-    if mtf.mtf_ranks.launches != before + 1:
-        raise RuntimeError("mtf wrapper did not launch its kernel")
+    others = [mtf.mtf_ranks(v, n, alpha, seg) for seg in segs]
+    if mtf.mtf_ranks.launches != before + 1 + len(segs):
+        raise RuntimeError("mtf wrapper did not launch its kernels")
     want, plain_ms = timed(lambda: mtf.mtf_ranks_plain(v, n, alpha))
-    err = int((got - want).abs().max())
+    err = max(int((g - want).abs().max()) for g in [got, *others])
     if err:
-        raise RuntimeError(f"mtf kernel disagrees with plain: {err}")
+        raise RuntimeError(f"mtf kernels disagree with plain: {err}")
     return err, ms, plain_ms
 
 
@@ -1260,26 +1431,30 @@ def phase_bzip2_encode_kernels(batch):
     err = 0
     for name, data in small.items():
         (v, n), (sel, nsel), _ = bzip2_encode_front([data])
-        e1, _, _ = compare_mtf(v, n, 256)
-        e2, _, _ = compare_mtf(sel, nsel, 6)
+        e1, _, _ = compare_mtf(v, n, 256, (MTF_SEG_CHECK,))
+        e2, _, _ = compare_mtf(sel, nsel, 6, (MTF_SEG_CHECK,))
         err = max(err, e1, e2)
         log("bzip2-encode-kernels", input=name, symbols=int(n.sum()),
-            selectors=int(nsel.sum()), max_abs_err=err)
+            selectors=int(nsel.sum()), segs=[mtf.MTF_SEG, MTF_SEG_CHECK],
+            max_abs_err=err)
     (v, n), (sel, nsel), rounds = bzip2_encode_front(batch)
     e, cold_ms, plain_ms = compare_mtf(v, n, 256)
-    _, ms = timed(lambda: mtf.mtf_ranks(v, n), 5)
+    ranks, ms = timed(lambda: mtf.mtf_ranks(v, n), 5)
     es, sel_cold_ms, sel_plain_ms = compare_mtf(sel, nsel, 6)
     _, sel_ms = timed(lambda: mtf.mtf_ranks(sel, nsel, 6), 5)
     err = max(err, e, es)
     symbols = int(n.long().sum())
-    # The walk reads each live symbol and writes its rank.
-    mtf_bound = bound_bytes_ops(8 * symbols + 4 * n.numel(),
-                                symbols * OPS_MTF_SYMBOL)
+    # The walk reads each live symbol and writes its rank; each symbol
+    # moves as many list entries as its rank.
+    mtf_bound = bound_bytes_ops(
+        8 * symbols + 4 * n.numel(),
+        symbols * OPS_MTF_ENCODE + int(ranks.long().sum()) * OPS_MTF_MOVE)
     log("bzip2-encode-kernels", input="headline-2x16MiB-l9",
         blocks=n.numel(), N=v.shape[1], bwt_rounds=rounds, symbols=symbols,
         max_abs_err=err, ms=f"{ms:.3f}", first_call_ms=f"{cold_ms:.3f}",
         plain_ms=f"{plain_ms:.3f}",
         bound_ms=f"{mtf_bound['bound_ms']:.4f}",
+        bound_by=mtf_bound["bound_by"], seg=mtf.MTF_SEG,
         selectors=int(nsel.long().sum()), sel_ms=f"{sel_ms:.3f}",
         sel_first_call_ms=f"{sel_cold_ms:.3f}",
         sel_plain_ms=f"{sel_plain_ms:.3f}")
@@ -1356,7 +1531,7 @@ def phase_bzip2_encode_slice(batch, blobs):
 def phase_bzip2_encode_timing(batches, smi) -> None:
     from tpz_torch import api
     from tpz_torch.codecs import bzip2
-    from tpz_torch.kernels import bwt
+    from tpz_torch.kernels import bwt, mtf
 
     total = sum(len(d) for d in batches[0])
     median, times = warm_median(lambda b: api.compress_many(
@@ -1370,7 +1545,8 @@ def phase_bzip2_encode_timing(batches, smi) -> None:
         **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
     profile_call(lambda: api.compress_many(batches[0], "bzip2", BZIP2_LEVEL,
                                            device="cuda"),
-                 "bzip2-encode", phase="bzip2-encode-timing")
+                 "bzip2-encode", {"mtf": mtf.mtf_ranks},
+                 phase="bzip2-encode-timing")
 
 
 def compare_v3w(inputs, cfg):
@@ -1478,6 +1654,8 @@ def main() -> int:
     from tpz_torch.utils import corpus
     from tpz_torch.codecs import gzip_codec
 
+    start = time.perf_counter()
+
     smi = phase_device()
     phase_build()
     # Seeds as bench.py: 1000, 1001 for the slice, fresh ones per timed
@@ -1505,8 +1683,8 @@ def main() -> int:
     phase_lzhuf_timing(batches[1:], batches[0], lz_blobs, smi)
     phase_lzhuf_profile(batches[0], lz_blobs)
     del lz_blobs
-    bz_blobs, stdlib_blob, cat, small_bz = bzip2_inputs(batches[0])
-    bz_walk, bz_ibwt = phase_bzip2_kernels(small_bz, bz_blobs)
+    bz_blobs, stdlib_blob, cat, small_bz, long_bz = bzip2_inputs(batches[0])
+    bz_walk, bz_ibwt = phase_bzip2_kernels(small_bz, long_bz, bz_blobs)
     bz = phase_bzip2_slice(batches[0], bz_blobs, stdlib_blob, *cat)
     phase_bzip2_timing(batches[0], bz_blobs, smi)
     mtf_row = phase_bzip2_encode_kernels(batches[0])
@@ -1514,6 +1692,7 @@ def main() -> int:
     del bz_blobs
     phase_bzip2_encode_timing(batches[1:], smi)
     reach, reach_n, v3w, v3w_n = phase_parse_kernels_8_9(batches[0], small)
+    log("total", script_s=f"{time.perf_counter() - start:.1f}")
     # Each kernel's launches come from its own main-path call: gzip encode
     # (#1), gzip decode (#2, #3), lh5 encode (#4), lh5 decode (#5), bzip2
     # decode (#6, #7), the public functions greedy_parse (#8) and

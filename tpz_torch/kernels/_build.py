@@ -1,8 +1,10 @@
 """Builds and loads the port's CUDA kernels.
 
 `nvcc` compiles every `tpz_torch/csrc/*.cu` for sm_90a, one process per
-source, all started together, and links the objects into one shared
-library with a plain C interface, `build/kernels/libtpz_torch_kernels.so`,
+source, all started together (the `*.cuh` headers they include are part
+of the build key, so a change to one rebuilds), and links the objects
+into one shared library with a plain C interface,
+`build/kernels/libtpz_torch_kernels.so`,
 loaded with ctypes. It builds at first use and again whenever the sources
 change. Nothing here runs at import of the package: only a kernel wrapper
 handed a CUDA tensor calls `lib()`.
@@ -33,11 +35,17 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
+def build_inputs() -> tuple[list[str], list[str]]:
+    """(the CUDA sources nvcc compiles, the headers they include)."""
+    return (sorted(glob.glob(os.path.join(CSRC, "*.cu"))),
+            sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
+
+
 def build(out_dir: str = BUILD_DIR) -> str:
     """Compile the kernels unless the library is current; returns its
     path. What nvcc and ptxas printed (registers, spills) goes to
     build.log beside it."""
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    sources, headers = build_inputs()
 
     def compile_to(out_path):
         objs = [os.path.join(out_dir, os.path.basename(s) + ".o")
@@ -62,7 +70,7 @@ def build(out_dir: str = BUILD_DIR) -> str:
             f.write("".join(log))
 
     return cached_build(out_dir, LIB_NAME,
-                        inputs_key(sources, *NVCC_FLAGS), compile_to)
+                        inputs_key(sources + headers, *NVCC_FLAGS), compile_to)
 
 
 def lib() -> ctypes.CDLL:
@@ -81,7 +89,7 @@ def lib() -> ctypes.CDLL:
         L.tpz_lzhuf_walk.restype = ci
         L.tpz_lzhuf_walk.argtypes = [vp] * 6 + [ci] * 2 + [vp]
         L.tpz_bzip2_walk.restype = ci
-        L.tpz_bzip2_walk.argtypes = [vp] * 9 + [ci] * 3 + [vp]
+        L.tpz_bzip2_walk.argtypes = [vp] * 11 + [ci] * 5 + [vp]
         L.tpz_ibwt_walk.restype = ci
         L.tpz_ibwt_walk.argtypes = [vp] * 6 + [ci] * 4 + [vp]
         L.tpz_reach_walk.restype = ci
@@ -89,6 +97,6 @@ def lib() -> ctypes.CDLL:
         L.tpz_parse_v3w_walk.restype = ci
         L.tpz_parse_v3w_walk.argtypes = [vp] * 4 + [ci] * 10 + [vp]
         L.tpz_mtf_encode.restype = ci
-        L.tpz_mtf_encode.argtypes = [vp] * 3 + [ci] * 2 + [vp]
+        L.tpz_mtf_encode.argtypes = [vp] * 4 + [ci] * 4 + [vp]
         _LIB = L
     return _LIB

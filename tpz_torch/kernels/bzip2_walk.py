@@ -6,9 +6,14 @@ The host header scan (cpp Bzip2ScanHeaders) gives, per block, the bit
 offset of its symbol stream, its selectors, its 6 x 258 code lengths and
 its initial MTF list. Then:
   walk    the multi-table Huffman decode (table switch every GROUP
-          symbols), MTF^-1 and RLE2^-1, one serial chain per bzip2 block,
-          into records count << 8 | byte (CUDA kernel csrc/bzip2_walk.cu
-          on a card)
+          symbols), MTF^-1 and RLE2^-1 into records count << 8 | byte
+          (CUDA kernels csrc/bzip2_walk.cu on a card: a records pass a
+          block, one thread decoding and a warp running RLE2, into count
+          << 8 | rank; then the MTF^-1 in segments of REC_SEG records
+          that run in parallel: B1 walks each segment's ranks on the
+          identity list of labels, B2 composes the segments' label lists
+          into each segment's starting list, B3 maps each label to its
+          byte)
   expand  the records run-expanded into each block's BWT last column
           (torch.repeat_interleave)
   sort    the LF-mapping vector of each block (ibwt_walk.ibwt_body)
@@ -46,6 +51,8 @@ META_WIDTH = 3            # nrec, err, end bitpos
 # The walk's arguments, in order, as block_layout names them.
 WALK_ARGS = ("n_used", "nsel", "sym_local", "sw", "tab", "selectors",
              "mtf_init")
+# Records a segment of the walk's MTF^-1 on a card (bzip2_walk).
+REC_SEG = 4096
 
 
 def build_tables(lens: np.ndarray, n_useds: np.ndarray):
@@ -215,12 +222,134 @@ def bzip2_walk_plain(n_used, nsel, sym_local, sw, tab, selectors, mtf_init,
     return out.reshape(NB, S + 1)[:, :S], meta
 
 
+def bzip2_records_plain(n_used, nsel, sym_local, sw, tab, selectors,
+                        S: int):
+    """The torch twin of the CUDA records pass: the walk of
+    bzip2_walk_plain without the MTF list, one trip per symbol consumed
+    (the symbol held after a run flush is handled on its flush's trip, as
+    the kernel does). Arguments as bzip2_walk_plain but mtf_init; returns
+    (recs [NB, S] int32: count << 8 | rank, the rank s - 1 of a literal or
+    0 for a flushed run, meta as bzip2_walk_plain's)."""
+    NB, SW = sw.shape
+    dev = sw.device
+    i64 = torch.int64
+    s_flat = as_u32(sw).reshape(-1)
+    t_flat = tab.to(i64).reshape(-1)
+    sel_flat = selectors.to(i64).reshape(-1)
+    row = torch.arange(NB, device=dev, dtype=i64)
+    s_base = row * SW
+    t_base = row * tab.shape[1]
+    sel_base = row * SEL_CAP
+    eob = n_used.to(i64) + 1
+    ns = nsel.to(i64)
+    zero = torch.zeros(NB, dtype=i64, device=dev)
+    bitpos = sym_local.to(i64)
+    gi, nrec, run_acc, run_bit, err = (zero.clone() for _ in range(5))
+    gpos = zero + GROUP
+    done = torch.zeros(NB, dtype=torch.bool, device=dev)
+    # Column S takes the writes of blocks that emit nothing.
+    out = torch.zeros(NB * (S + 1), dtype=torch.int32, device=dev)
+    o_base = row * (S + 1)
+
+    def emit(where, rec):
+        out[o_base + torch.where(where, nrec, S)] = rec.to(torch.int32)
+        return torch.where(where, nrec + 1, nrec)
+
+    while not bool(done.all()):
+        act = ~done
+        t = torch.where(gi < SEL_CAP,
+                        sel_flat[sel_base + torch.clamp(gi, max=SEL_CAP - 1)],
+                        0).clamp(max=5)
+        w = s_base + torch.clamp(bitpos >> 5, max=SW - 2)
+        sh = bitpos & 31
+        top = ((s_flat[w] << sh) & U32) | torch.where(
+            sh > 0, s_flat[w + 1] >> ((32 - sh) & 31), 0)
+        tb = t_base + t * TAB_STRIDE
+        e1 = t_flat[tb + (top >> (32 - L1_BITS))]
+        e2 = t_flat[tb + L1W + (e1 >> 5) + ((top >> (32 - L1_BITS - 5)) & 31)]
+        e = torch.where((e1 & 31) == 31, e2, e1)
+        ln = e & 31
+        s = e >> 5
+        why = (torch.where(ln == 0, 1, 0) | torch.where(gi >= ns, 2, 0)
+               | torch.where(s > eob, 4, 0)
+               | torch.where(run_acc > (1 << 21), 8, 0)
+               | torch.where(nrec >= S - 2, 16, 0))
+        bad = act & (why != 0)
+        is_run = s <= 1
+        flush = act & ~is_run & (run_acc > 0)
+        nrec = emit(flush, run_acc << 8)
+        err = torch.where(bad, why | ((bitpos + 1) << 10), err)
+        step = act & ~bad
+        bitpos = torch.where(step, bitpos + ln, bitpos)
+        gpos = torch.where(step, gpos - 1, gpos)
+        gi = torch.where(gpos == 0, gi + 1, gi)
+        gpos = torch.where(gpos == 0, GROUP, gpos)
+        grow = step & is_run
+        run_acc = torch.where(grow, run_acc + ((s + 1) << run_bit),
+                              torch.where(flush, 0, run_acc))
+        run_bit = torch.where(grow, run_bit + 1,
+                              torch.where(flush, 0, run_bit))
+        # The held trip of a flush: the record cap, with the bit position
+        # already advanced.
+        capped = step & flush & (nrec >= S - 2)
+        err = torch.where(capped, 16 | ((bitpos + 1) << 10), err)
+        nonrun = step & ~is_run & ~capped
+        nrec = emit(nonrun & (s != eob),
+                    (1 << 8) | torch.clamp(s - 1, 0, 255))
+        done = done | bad | capped | (nonrun & (s == eob))
+    meta = torch.stack([nrec.to(torch.int32), to_i32(err),
+                        bitpos.to(torch.int32)], dim=1)
+    return out.reshape(NB, S + 1)[:, :S], meta
+
+
+def mtf_decode_segments_plain(recs, meta, mtf_init, seg: int = REC_SEG):
+    """The torch twin of the CUDA passes B1-B3 at segments of `seg`
+    records: recs [NB, S] int32 count << 8 | rank (bzip2_records_plain),
+    meta, mtf_init [NB, 256] uint8 -> recs count << 8 | byte, each block's
+    records past meta[:, 0] as they were."""
+    NB, S = recs.shape
+    dev = recs.device
+    nrec = meta[:, 0].to(torch.int64)
+    top = int(nrec.max()) if NB else 0
+    nseg = -(-top // seg)
+    if nseg == 0:
+        return recs.clone()
+    n = nseg * seg
+    pos = torch.arange(n, device=dev)
+    live = pos[None, :] < nrec[:, None]
+    r = torch.nn.functional.pad(recs[:, :min(n, S)].to(torch.int64),
+                                (0, max(n - S, 0)))
+    ranks = torch.where(live, r & 255, 0).reshape(NB * nseg, seg)
+    # B1: each segment's ranks walked on the identity list of labels; a
+    # record's label is the one at its rank, P_k the final list.
+    lane = torch.arange(256, device=dev)
+    lst = lane.expand(NB * nseg, 256).clone()
+    labels = torch.zeros_like(ranks)
+    for i in range(min(seg, top)):
+        j = ranks[:, i:i + 1]
+        lab = lst.gather(1, j)
+        moved = torch.where(lane == 0, lab, torch.roll(lst, 1, 1))
+        lst = torch.where(lane <= j, moved, lst)
+        labels[:, i] = lab[:, 0]
+    P = lst.reshape(NB, nseg, 256)
+    # B2: L_0 = mtf_init, L_{k+1}[i] = L_k[P_k[i]].
+    L = [mtf_init.to(torch.int64)]
+    for k in range(nseg - 1):
+        L.append(L[-1].gather(1, P[:, k]))
+    L = torch.stack(L, dim=1)
+    # B3: a label's byte in its segment's starting list.
+    byte = L.gather(2, labels.reshape(NB, nseg, seg)).reshape(NB, n)
+    out = torch.where(live, (r & ~255) | byte, r)[:, :S].to(torch.int32)
+    return torch.cat([out, recs[:, out.shape[1]:]], dim=1)
+
+
 def bzip2_walk(n_used, nsel, sym_local, sw, tab, selectors, mtf_init,
-               S: int):
-    """The symbol walk: the plain version for CPU tensors, the CUDA kernel
-    (csrc/bzip2_walk.cu) for CUDA tensors. Arguments and results as
-    bzip2_walk_plain; the per-block vectors, sw and tab int32, selectors
-    and mtf_init uint8, all contiguous."""
+               S: int, mtf_seg: int = REC_SEG):
+    """The symbol walk: the plain version for CPU tensors, the CUDA
+    kernels (csrc/bzip2_walk.cu: the records pass, then the MTF^-1 in
+    segments of `mtf_seg` records) for CUDA tensors. Arguments and
+    results as bzip2_walk_plain; the per-block vectors, sw and tab int32,
+    selectors and mtf_init uint8, all contiguous."""
     args = (n_used, nsel, sym_local, sw, tab, selectors, mtf_init)
     if sw.device.type == "cpu":
         return bzip2_walk_plain(*args, S)
@@ -240,24 +369,34 @@ def bzip2_walk(n_used, nsel, sym_local, sw, tab, selectors, mtf_init,
                 f"bzip2 walk: {name} must be a contiguous {dtype} tensor of "
                 f"shape {shape} on {sw.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
-    if SW < 2 or S < 3:
-        raise ValueError(f"bzip2 walk: slices of {SW} words and {S} "
-                         "records per block, need >= 2 and >= 3")
+    if SW < 2 or S < 3 or mtf_seg < 1 or NB > 65535:
+        raise ValueError(f"bzip2 walk: slices of {SW} words, {S} records "
+                         f"per block, segments of {mtf_seg}, {NB} blocks; "
+                         "need >= 2, >= 3, >= 1 and <= 65535")
     recs = torch.zeros((NB, S), dtype=torch.int32, device=sw.device)
     meta = torch.zeros((NB, META_WIDTH), dtype=torch.int32, device=sw.device)
+    # Each segment's final label list P_k and starting list L_k.
+    lists = torch.empty((2, NB, -(-S // mtf_seg), 256), dtype=torch.uint8,
+                        device=sw.device)
     from tpz_torch.kernels import _build
 
     with torch.cuda.device(sw.device):
-        rc = _build.lib().tpz_bzip2_walk(
-            *(t.data_ptr() for t in args), recs.data_ptr(), meta.data_ptr(),
-            NB, SW, S, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bzip2 walk kernel launch failed: cudaError {rc}")
+        for p, kernel in enumerate(bzip2_walk.kernels):
+            rc = _build.lib().tpz_bzip2_walk(
+                *(t.data_ptr() for t in args), recs.data_ptr(),
+                meta.data_ptr(), lists[0].data_ptr(), lists[1].data_ptr(),
+                NB, SW, S, mtf_seg, p, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"bzip2 walk: {kernel} launch failed: "
+                                   f"cudaError {rc}")
     bzip2_walk.launches += 1
     return recs, meta
 
 
 bzip2_walk.launches = 0
+# The CUDA kernels of one call, in launch order (pass 0-3 of the C entry).
+bzip2_walk.kernels = ("bzip2_records_kernel", "mtf_labels_kernel",
+                      "mtf_lists_kernel", "mtf_bytes_kernel")
 
 
 # ------------------------------------------------------- device stages

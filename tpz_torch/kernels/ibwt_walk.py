@@ -180,6 +180,7 @@ def ibwt(w, start_g, length, seg: int):
 
 
 ibwt.launches = 0
+ibwt.kernels = ("ibwt_pass1", "ibwt_stitch", "ibwt_pass2")
 
 
 def lf_inputs(last, length, orig):

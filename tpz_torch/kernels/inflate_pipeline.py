@@ -203,6 +203,7 @@ def symbol_walk(stream_words, body_bit_local, out_len, tab, len_base,
 
 
 symbol_walk.launches = 0
+symbol_walk.kernels = ("symbol_walk_kernel",)
 
 
 # ------------------------------------------------------- device stages

@@ -226,6 +226,7 @@ def lzhuf_walk(stream_words, body_bit_local, out_len, start_pos, tab):
 
 
 lzhuf_walk.launches = 0
+lzhuf_walk.kernels = ("lzhuf_walk_kernel",)
 
 
 # ------------------------------------------------------- device stages

@@ -10,10 +10,20 @@ last occurrence before i is more recent than s's:
 `mtf_ranks_plain` is the reference's chunked form of that formula: per
 chunk of CHUNK positions, a cummax over a [chunk, alpha] expansion gives
 the last occurrences. `mtf_ranks` is the wrapper: the plain version for
-CPU tensors, the CUDA kernel csrc/mtf_encode.cu (one warp per row walking
-the list itself) for CUDA tensors.
+CPU tensors, the CUDA kernels of csrc/mtf_encode.cu for CUDA tensors. They
+cut each row into segments of MTF_SEG symbols and use the formula to
+start every segment's list walk at once:
 
-Both return 0 at positions at or past a row's length, where the
+  E1 last   the last occurrence of each symbol inside each segment
+  E2 keys   per row, an exclusive max-scan of those over the segments:
+            the keys entering each segment
+  E3 walk   per segment, the list ordered by those keys (the symbol with
+            the largest key first), then the list walk itself
+
+`mtf_ranks_segments_plain` is the torch twin of those three passes, which
+the tests hold equal to the plain version and to the reference.
+
+All return 0 at positions at or past a row's length, where the
 reference's output is unspecified.
 """
 
@@ -23,6 +33,8 @@ import torch
 
 CHUNK = 2048
 NEG = -300
+# Symbols a segment of the CUDA kernels (mtf_ranks).
+MTF_SEG = 4096
 
 
 def mtf_ranks_plain(v: torch.Tensor, length: torch.Tensor,
@@ -57,11 +69,55 @@ def mtf_ranks_plain(v: torch.Tensor, length: torch.Tensor,
     return torch.where(live, ranks, 0)
 
 
-def mtf_ranks(v: torch.Tensor, length: torch.Tensor,
-              alpha: int = 256) -> torch.Tensor:
+def mtf_ranks_segments_plain(v: torch.Tensor, length: torch.Tensor,
+                             alpha: int = 256,
+                             seg: int = MTF_SEG) -> torch.Tensor:
+    """The torch twin of the CUDA passes E1-E3 at segments of `seg`
+    symbols: arguments and result as mtf_ranks_plain."""
+    NB, n = v.shape
+    dev = v.device
+    nseg = -(-n // seg)
+    if nseg == 0:
+        return torch.zeros_like(v)
+    pos = torch.arange(nseg * seg, device=dev)
+    live = pos[None, :] < length.to(torch.int64)[:, None]
+    vp = torch.nn.functional.pad(v.to(torch.int64), (0, nseg * seg - n))
+    vp = torch.where(live, vp, 0)
+    # E1: the last occurrence of each symbol inside each segment, or -1.
+    idx = torch.where(live, (pos // seg) * 256 + vp, nseg * 256)
+    last = torch.full((NB, nseg * 256 + 1), -1, dtype=torch.int64,
+                      device=dev)
+    last.scatter_reduce_(1, idx, pos.expand(NB, -1), "amax")
+    last = last[:, :-1].reshape(NB, nseg, 256)
+    # E2: the keys entering each segment, -1 - t for a symbol unseen.
+    key = -1 - torch.arange(256, device=dev).expand(NB, 256)
+    keys = []
+    for k in range(nseg):
+        keys.append(key)
+        key = torch.where(last[:, k] >= 0, last[:, k], key)
+    keys = torch.stack(keys, dim=1).reshape(NB * nseg, 256)
+    # E3: the list ordered by key, largest first (the keys are distinct,
+    # so the rank of t is the number of keys above its key), then the walk.
+    lst = torch.argsort(keys, dim=1, descending=True)
+    lane = torch.arange(256, device=dev)
+    syms = vp.reshape(NB * nseg, seg)
+    out = torch.zeros_like(syms)
+    for i in range(min(seg, n)):
+        s = syms[:, i:i + 1]
+        j = (lst == s).to(torch.int32).argmax(dim=1, keepdim=True)
+        moved = torch.where(lane == 0, s, torch.roll(lst, 1, 1))
+        lst = torch.where(lane <= j, moved, lst)
+        out[:, i] = j[:, 0]
+    out = out.reshape(NB, nseg * seg)
+    return torch.where(live, out, 0)[:, :n].to(torch.int32)
+
+
+def mtf_ranks(v: torch.Tensor, length: torch.Tensor, alpha: int = 256,
+              seg: int = MTF_SEG) -> torch.Tensor:
     """MTF ranks of v [NB, n] int32 (< alpha <= 256) over each row's
     first length [NB] int32 positions: the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors (both contiguous int32)."""
+    the CUDA kernels at segments of `seg` symbols for CUDA tensors (both
+    contiguous int32)."""
     if v.device.type == "cpu":
         return mtf_ranks_plain(v, length, alpha)
     if v.device.type != "cuda":
@@ -69,6 +125,9 @@ def mtf_ranks(v: torch.Tensor, length: torch.Tensor,
     if not 1 <= alpha <= 256:
         raise ValueError(f"mtf encode: alpha {alpha} outside 1..256")
     NB, n = v.shape
+    if seg < 1 or NB > 65535:
+        raise ValueError(f"mtf encode: segments of {seg} symbols, {NB} "
+                         "rows; need >= 1 and <= 65535")
     for name, t, shape in (("v", v, (NB, n)), ("length", length, (NB,))):
         if (t.device != v.device or t.dtype != torch.int32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -77,16 +136,24 @@ def mtf_ranks(v: torch.Tensor, length: torch.Tensor,
                 f"shape {shape} on {v.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
     out = torch.zeros((NB, n), dtype=torch.int32, device=v.device)
+    keys = torch.empty((NB, -(-n // seg), 256), dtype=torch.int32,
+                       device=v.device)
     from tpz_torch.kernels import _build
 
     with torch.cuda.device(v.device):
-        rc = _build.lib().tpz_mtf_encode(
-            v.data_ptr(), length.data_ptr(), out.data_ptr(), NB, n,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"mtf encode kernel launch failed: cudaError {rc}")
+        for p, kernel in enumerate(mtf_ranks.kernels):
+            rc = _build.lib().tpz_mtf_encode(
+                v.data_ptr(), length.data_ptr(), out.data_ptr(),
+                keys.data_ptr(), NB, n, seg, p,
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"mtf encode: {kernel} launch failed: "
+                                   f"cudaError {rc}")
     mtf_ranks.launches += 1
     return out
 
 
 mtf_ranks.launches = 0
+# The CUDA kernels of one call, in launch order (pass 0-2 of the C entry).
+mtf_ranks.kernels = ("mtf_last_kernel", "mtf_keys_kernel",
+                     "mtf_encode_kernel")

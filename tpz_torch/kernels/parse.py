@@ -333,6 +333,7 @@ def parse_extend_v3(pk1, pk2, cap_at, words, block_len, window,
 
 
 parse_extend_v3.launches = 0
+parse_extend_v3.kernels = ("parse_walk_v3",)
 
 
 def _v3w_cap_at(block_len, N, max_match, restart):
@@ -412,6 +413,7 @@ def parse_extend_v3w(pk1, pk2, words, block_len, window, max_match=258,
 
 
 parse_extend_v3w.launches = 0
+parse_extend_v3w.kernels = ("parse_v3w_walk",)
 
 
 # ------------------------------------------------------------ greedy reach
@@ -448,6 +450,7 @@ def reach_walk(step: torch.Tensor) -> torch.Tensor:
 
 
 reach_walk.launches = 0
+reach_walk.kernels = ("reach_walk_kernel",)
 
 
 def greedy_parse(match_len, match_dist, block_len):
@@ -590,3 +593,4 @@ def parse_extend_v1(screen, best_j, words, block_len, window: int,
 
 
 parse_extend_v1.launches = 0
+parse_extend_v1.kernels = ("parse_v1_walk",)

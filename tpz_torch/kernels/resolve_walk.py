@@ -162,6 +162,8 @@ def resolve_copy_machine(markers: torch.Tensor, dist_bias: int = 0,
 
 
 resolve_copy_machine.launches = 0
+# Phase 2 runs for a span of more than one segment (two_phase).
+resolve_copy_machine.kernels = ("resolve_phase1", "resolve_phase2")
 
 
 def _prepare(markers: torch.Tensor, dist_bias: int,
