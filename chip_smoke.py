@@ -23,19 +23,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
               plain doubling resolve (exact bytes): 1 MiB of
               corpus.mixed and of corpus.repetitive on the TZ-indexed and
               the segmented route; a match-heavy synthetic marker stream
-              (dist 1-4 runs) with dist_bias 0 and 1; then at 16 MiB a
-              TZ-indexed member and the segmented layout of a phase-4
-              gzip body (the headline dispatch's own input), both kernels
-              timed there beside their plain versions (the copy machine's
-              launch alone and through its wrapper); the plain walk runs
-              on host copies of the walk's inputs
+              (dist 1-4 runs, copies 32 KiB back) with dist_bias 0 and 1,
+              at 2^24 positions (one copy-machine launch, chains across
+              every segment) and at 2^24 + 2^20 (the chunked route, two
+              launches); then at 16 MiB a TZ-indexed member and the
+              segmented layout of a phase-4 gzip body (the headline
+              dispatch's own input, one launch), both kernels timed there
+              beside their plain versions (the copy machine per 16 MiB
+              span: its launch alone, at three segment lengths, and
+              through its wrapper); the plain walk runs on host copies of
+              the walk's inputs
   7. decode-slice
               api.decompress_many on the 2 x 16 MiB gzip blobs of phase 4,
               api.decompress on a 16 MiB TZ-indexed member, a stdlib gzip
               and a stdlib zlib stream, device "cuda": every output equals
               its input; on each of the four paths, with the counts set to
               0 just before it, both decode kernels launched and nothing
-              declined to the host
+              declined to the host; a corrupt gzip stream raises on the
+              card the error that device "cpu" raises
   8. decode-timing
               warm median of 3 decompress_many calls on the 2 x 16 MiB
               batch (MB/s of plaintext) and a per-stage split from CUDA
@@ -43,8 +48,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
   9. lzhuf-kernels
               the v1 parse-walk kernel against its plain torch version
               (exact reach and lengths) on the blocks of 1 MiB of
-              corpus.mixed at lh5 and lh7 and on the headline batch's
-              blocks at lh5; the LZHUF token-walk kernel against its plain
+              corpus.mixed at lh5 and lh7 (lh5 also with lazy=True) and
+              on the headline batch's blocks at lh5; the LZHUF token-walk kernel against its plain
               version (exact markers) and the copy machine at dist_bias 1
               against the plain resolve (exact bytes) on the segmented
               layout of 1 MiB lh5 and lh7 streams and of a 16 MiB lh5
@@ -58,7 +63,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
               then api.decompress_many of each gives the input back. Each
               call runs with the launch counts set to 0 just before it and
               read just after: the v1 parse walk on encode, the token walk
-              and the copy machine on decode; nothing declines to the host
+              and the copy machine on decode; nothing declines to the host.
+              Corrupt lh5 streams decode on the card as on device "cpu":
+              one raises the same error, one gives the same bytes
  11. lzhuf-timing
               lh5 encode MB/s (warm median of 3 calls on the timing
               batches) and decode MB/s (warm median of 3 calls on the
@@ -132,6 +139,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
               kernel equals the pointer doubling there; each called
               through its public function with its count set to 0, both
               timed at the headline
+ 20. decode-profile
+              one gzip decode call of phase 4's blobs under torch.profiler
+              (as phase 12; the trace must hold the symbol walk's and the
+              copy machine's kernels)
 The last phase line gives the script's seconds so far. A JSON record of
 the kernels (launches from each one's main-path call:
 gzip encode, gzip decode, lh5 encode, lh5 decode, bzip2 decode, the
@@ -182,11 +193,13 @@ OPS_LZHUF_LITERAL = 44     # lzhuf_walk.cu: a token that is a literal
 OPS_LZHUF_MATCH = 108      # ... a match (p lookup, raw bits, marker)
 OPS_SYMBOL_LITERAL = 49    # symbol_walk.cu: a literal
 OPS_SYMBOL_MATCH = 137     # ... a match (length and distance extras)
-OPS_V1_VISIT = 31          # parse_v1_walk.cu: a visited position
+OPS_V1_VISIT = 31          # #4: a visited position (counted from the
+                           # serial walk; the function's own work)
 OPS_V1_EXTEND = 16         # ... one 4-byte extension compare
 OPS_V3_TOKEN = 15          # parse_walk.cu: a token on the mark fast path
-OPS_COPY_POSITION = 16     # resolve_walk.cu: window state + phase 2 check
-OPS_COPY_MATCHED = 12      # ... phase 1's copy of one matched position
+OPS_COPY_POSITION = 16     # #3: a position's state and its check
+                           # (counted from the serial copy machine)
+OPS_COPY_MATCHED = 12      # ... the copy of one matched position
 OPS_IBWT_STEP = 17         # ibwt_walk.cu: a node in pass 1 and in pass 2
 OPS_IBWT_CHAIN = 45        # ... a chain's set-up in both passes and stitch
 OPS_REACH_STEP = 8         # reach_walk.cu: a visited position
@@ -546,16 +559,19 @@ def compare_walk(t):
     return got, err, ms, plain_ms
 
 
-def compare_resolve(dense, dist_bias=0):
+def compare_resolve(dense, dist_bias=0, launches=None):
     """Copy machine (resolve_dense on a CUDA tensor) vs the plain doubling
     resolve over the whole span: max abs byte difference, which must be
-    0."""
+    0. `launches`, where given, is the number of copy-machine launches
+    the span must take (1 up to 2^24 positions)."""
     from tpz_torch.kernels import resolve_walk as rw
 
     before = rw.resolve_copy_machine.launches
     got = rw.resolve_dense(dense, dist_bias)
-    if rw.resolve_copy_machine.launches == before:
-        raise RuntimeError("copy-machine wrapper did not launch its kernel")
+    n = rw.resolve_copy_machine.launches - before
+    if n == 0 or launches is not None and n != launches:
+        raise RuntimeError(f"copy machine: {n} launches for "
+                           f"{dense.shape[0]} positions, want {launches}")
     want = rw.resolve_doubling_state(dense, dist_bias) & 0xFF
     err = int((got.to(torch.int64) - want).abs().max())
     if err:
@@ -581,6 +597,17 @@ def synthetic_markers(n, dist_bias, seed):
     return torch.from_numpy(m.astype(np.int32)).cuda()
 
 
+def dist1_markers(n):
+    """A literal, then 258-byte matches at dist 1 to the end: every byte
+    copies the one before its match, so the chain of the last byte runs
+    through every segment of the span (phase 2's deepest case)."""
+    m = np.zeros(n, np.int32)
+    m[0] = (1 << 28) | 0x61
+    starts = np.arange(1, n, 258)
+    m[starts] = (2 << 28) | (1 << 9) | np.minimum(258, n - starts)
+    return torch.from_numpy(m).cuda()
+
+
 def phase_decode_kernels(small, big, body):
     """`big` is 16 MiB of plaintext for the TZ-indexed route; `body` is the
     raw DEFLATE body of one phase-4 gzip blob, whose segmented layout is
@@ -599,11 +626,20 @@ def phase_decode_kernels(small, big, body):
             log("decode-kernels", input=name, route=route,
                 entries=t["out_len"].shape[0], walk_max_abs_err=e,
                 resolve_max_abs_err=err_r)
-    for bias in (0, 1):
-        m = synthetic_markers(rw.PHASE2_CAP + (1 << 20), bias, 7 + bias)
-        err_r = max(err_r, compare_resolve(m, bias))
-        log("decode-kernels", input="synthetic-runs", positions=m.shape[0],
-            dist_bias=bias, resolve_max_abs_err=err_r)
+    spans = [("synthetic-runs", rw.MAX_PACKED_SPAN, bias, 1)
+             for bias in (0, 1)]
+    spans += [("synthetic-runs", rw.MAX_PACKED_SPAN + MIB, bias, 2)
+              for bias in (0, 1)]
+    spans.append(("dist-1-runs", rw.MAX_PACKED_SPAN, 0, 1))
+    for name, n, bias, want in spans:
+        m = (synthetic_markers(n, bias, 7 + bias) if name == "synthetic-runs"
+             else dist1_markers(n))
+        err_r = max(err_r, compare_resolve(m, bias, want))
+        _, ms = timed(lambda: rw.resolve_dense(m, bias), 3)
+        log("decode-kernels", input=name, positions=n, dist_bias=bias,
+            resolve_launches=want, resolve_max_abs_err=err_r,
+            resolve_wrapper_ms=f"{ms:.3f}")
+        del m
 
     for name, t in (("16MiB-indexed", indexed_inputs(big)),
                     ("16MiB-segmented-headline", segmented_inputs(body))):
@@ -612,29 +648,33 @@ def phase_decode_kernels(small, big, body):
         args = ip._walk_args(t)
         _, walk_ms = timed(lambda: ip.symbol_walk(*args), 5)
         dense = dense_markers(t, markers)
-        err_r = max(err_r, compare_resolve(dense))
-        # The copy machine at the shape the main path gives it: the first
-        # PHASE2_CAP chunk of the 16 MiB span. `ms` is its launch alone on
-        # prepared inputs; the wrapper adds the boundary carries and pad.
-        chunk = dense[:rw.PHASE2_CAP].contiguous()
-        prep = rw._prepare(chunk, 0, rw.SEGMENT_ROWS)
-        rw._launch(*prep)
-        _, res_ms = timed(lambda: rw._launch(*prep), 5)
-        _, wrap_ms = timed(lambda: rw.resolve_copy_machine(chunk), 5)
-        rw.resolve_doubling_state(chunk)
-        _, res_plain_ms = timed(lambda: rw.resolve_doubling_state(chunk), 3)
-        _, dense_ms = timed(lambda: rw.resolve_dense(dense), 3)
-        _, dense_plain_ms = timed(lambda: rw.resolve_doubling_state(dense), 3)
+        err_r = max(err_r, compare_resolve(dense, 0, 1))
+        # The copy machine as the main path launches it: once on the whole
+        # 16 MiB span. `ms` is its launch alone (phase 1 and phase 2's
+        # rounds, pending counts zeroed) on prepared inputs, also at half
+        # and twice the default segment; the wrapper adds the boundary
+        # carries and the pad.
+        by_rows = {}
+        for rows in (rw.SEGMENT_ROWS // 2, rw.SEGMENT_ROWS * 2,
+                     rw.SEGMENT_ROWS):
+            prep = rw._prepare(dense, 0, rows)
+            rw._launch(*prep)
+            _, by_rows[rows] = timed(lambda: (prep[2].zero_(),
+                                              rw._launch(*prep)), 5)
+        res_ms = by_rows[rw.SEGMENT_ROWS]
+        _, wrap_ms = timed(lambda: rw.resolve_copy_machine(dense), 5)
+        rw.resolve_doubling_state(dense)
+        _, res_plain_ms = timed(lambda: rw.resolve_doubling_state(dense), 3)
         log("decode-kernels", input=name, entries=args[0].shape[0],
-            positions=dense.shape[0], walk_max_abs_err=e,
-            resolve_max_abs_err=err_r, walk_ms=f"{walk_ms:.3f}",
-            walk_first_call_ms=f"{cold_ms:.3f}",
+            positions=dense.shape[0], segments=prep[3],
+            walk_max_abs_err=e, resolve_max_abs_err=err_r,
+            walk_ms=f"{walk_ms:.3f}", walk_first_call_ms=f"{cold_ms:.3f}",
             walk_plain_ms=f"{walk_plain_ms:.3f}",
-            resolve_chunk_ms=f"{res_ms:.3f}",
-            resolve_chunk_wrapper_ms=f"{wrap_ms:.3f}",
-            resolve_chunk_plain_ms=f"{res_plain_ms:.3f}",
-            resolve_16MiB_ms=f"{dense_ms:.3f}",
-            resolve_16MiB_plain_ms=f"{dense_plain_ms:.3f}")
+            resolve_16MiB_ms=f"{res_ms:.3f}",
+            resolve_16MiB_ms_by_segment_rows=json.dumps(
+                {r: round(v, 4) for r, v in sorted(by_rows.items())}),
+            resolve_16MiB_wrapper_ms=f"{wrap_ms:.3f}",
+            resolve_16MiB_plain_ms=f"{res_plain_ms:.3f}")
     # The kernels line keeps the headline input's times (the last one).
     walk_bound = bound([*args, markers], walk_ops(
         markers, args[0].numel() + args[3].numel(), OPS_SYMBOL_LITERAL,
@@ -690,7 +730,50 @@ def phase_decode_slice(batch, blobs):
         drive_decode(f"stdlib-{fmt}-16MiB",
                      lambda: api.decompress(blob, fmt, device="cuda"),
                      batch[1])
+    blob = corrupt(api.compress(corrupt_data(), "gzip", LEVEL,
+                                device="cuda"), 0.5)
+    outcome = same_outcome("corrupt gzip", blob, "gzip")
+    if outcome == "bytes":
+        raise RuntimeError("corrupt gzip: the CRC did not reject it")
+    log("decode-slice", path="corrupt-gzip", same_as_cpu=outcome)
     return launches
+
+
+def corrupt_data() -> bytes:
+    """The small buffer that the corrupt-stream checks encode: its plain
+    decode on the CPU takes about a second."""
+    from tpz_torch.utils import corpus
+
+    return corpus.mixed(6000, seed=3)
+
+
+def corrupt(blob: bytes, where: float) -> bytes:
+    """`blob` with bit 4 of one byte flipped, `where` of the way in (an
+    int: that offset)."""
+    off = where if isinstance(where, int) else int(len(blob) * where)
+    b = bytearray(blob)
+    b[off] ^= 0x10
+    return bytes(b)
+
+
+def same_outcome(what: str, blob: bytes, fmt: str) -> str:
+    """Decodes `blob` on the card and on the CPU: both must raise the same
+    error class and message, or return the same bytes. Returns "bytes",
+    or the error's class and message."""
+    from tpz_torch import api
+
+    def outcome(device):
+        try:
+            return ("bytes", api.decompress(blob, fmt, device=device))
+        except Exception as e:  # the error is what is compared
+            return (type(e).__name__, str(e))
+
+    got, want = outcome("cuda"), outcome("cpu")
+    if got != want:
+        raise RuntimeError(f"{what}: the card gave {got[0]} "
+                           f"{got[1][:80]!r}, the CPU {want[0]} "
+                           f"{want[1][:80]!r}")
+    return got[0] if got[0] == "bytes" else f"{got[0]}({got[1]!r})"
 
 
 def phase_decode_timing(batch, blobs, smi) -> None:
@@ -712,6 +795,20 @@ def phase_decode_timing(batch, blobs, smi) -> None:
         zlib.crc32(d)
     split["host_crc"] = (time.perf_counter() - t0) * 1e3
     log("decode-timing", **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
+
+
+def phase_decode_profile(blobs) -> None:
+    """One gzip decode call of the headline blobs under torch.profiler, as
+    phase 12. It runs last: with one more profiled call before phase 15,
+    phase 15's trace lost the bzip2 walk's kernels (PERF.md §7)."""
+    from tpz_torch import api
+    from tpz_torch.kernels import inflate_pipeline as ip
+    from tpz_torch.kernels import resolve_walk as rw
+
+    profile_call(lambda: api.decompress_many(blobs, "gzip", device="cuda"),
+                 "gzip-decode", {"walk": ip.symbol_walk,
+                                 "resolve": rw.resolve_copy_machine},
+                 phase="decode-profile")
 
 
 def _dict_bits(method: str) -> int:
@@ -738,7 +835,7 @@ def lzhuf_parse_inputs(datas, method):
     return (bs[:, sl].contiguous(), bj[:, sl].contiguous(), words, bl), window
 
 
-def compare_parse_v1(inputs, window):
+def compare_parse_v1(inputs, window, lazy=False):
     """v1 parse-walk kernel vs plain on the same CUDA tensors: ((reach,
     mlen), max abs difference, kernel ms, plain ms), each timed on its
     first call. Raises unless both outputs are equal everywhere."""
@@ -747,11 +844,11 @@ def compare_parse_v1(inputs, window):
 
     before = parse.parse_extend_v1.launches
     got, ms = timed(lambda: parse.parse_extend_v1(
-        *inputs, window, max_match=lp.MAX_MATCH))
+        *inputs, window, max_match=lp.MAX_MATCH, lazy=lazy))
     if parse.parse_extend_v1.launches != before + 1:
         raise RuntimeError("v1 parse wrapper did not launch its kernel")
     want, plain_ms = timed(lambda: parse.parse_extend_v1_plain(
-        *inputs, window, max_match=lp.MAX_MATCH))
+        *inputs, window, max_match=lp.MAX_MATCH, lazy=lazy))
     err = max(int((g - w).abs().max()) for g, w in zip(got, want))
     if err:
         raise RuntimeError(f"v1 parse kernel disagrees with plain: {err}")
@@ -807,6 +904,13 @@ def phase_lzhuf_kernels(small, headline):
         inputs, window = lzhuf_parse_inputs([small], method)
         _, e, _, _ = compare_parse_v1(inputs, window)
         err_p = max(err_p, e)
+        if method == "lh5":
+            # No codec path parses lazily; the kernel's lazy rule is held
+            # here.
+            (reach, _), e, _, _ = compare_parse_v1(inputs, window, lazy=True)
+            err_p = max(err_p, e)
+            log("lzhuf-kernels", input="1MiB-mixed-lh5-lazy",
+                visited=int((reach > 0).sum()), parse_max_abs_err=err_p)
         t = lzhuf_walk_inputs(oracle.lzhuf_encode(small, _dict_bits(method),
                                                   lp.MAX_CHAIN),
                               len(small), method)
@@ -825,9 +929,9 @@ def phase_lzhuf_kernels(small, headline):
         *inputs, window, max_match=lp.MAX_MATCH), 5)
     _, parse_plain_ms = timed(lambda: parse.parse_extend_v1_plain(
         *inputs, window, max_match=lp.MAX_MATCH), 3)
-    # The kernel writes reach; mlen is derived from it afterwards. A match
-    # extends from a screen of at most 8 bytes, 4 bytes a compare.
-    parse_bound = bound([*inputs, got[0]], int((got[0] > 0).sum())
+    # The kernel writes reach and mlen. A match extends from a screen of at
+    # most 8 bytes, 4 bytes a compare.
+    parse_bound = bound([*inputs, *got], int((got[0] > 0).sum())
                         * OPS_V1_VISIT + int((torch.clamp(got[1] - 8, min=0)
                                               // 4).sum()) * OPS_V1_EXTEND)
     log("lzhuf-kernels", input=f"headline-{LZHUF_METHOD}",
@@ -905,6 +1009,16 @@ def phase_lzhuf_slice(batch, small):
         log("lzhuf-slice", path=f"decode-{method}", cold_s=f"{dt:.3f}",
             walk_launches=c["walk"], resolve_launches=c["resolve"],
             host_declines=0, identical=True)
+    # LZHUF has no checksum: a flip in the tables' header raises, one in
+    # the body decodes to other bytes, on the card as on the CPU.
+    blob = api.compress(corrupt_data(), LZHUF_METHOD, device="cuda")
+    outcomes = {where: same_outcome(f"corrupt {LZHUF_METHOD}",
+                                    corrupt(blob, where), LZHUF_METHOD)
+                for where in (40, 0.5)}
+    if outcomes[40] == "bytes" or outcomes[0.5] != "bytes":
+        raise RuntimeError(f"corrupt {LZHUF_METHOD}: {outcomes}")
+    log("lzhuf-slice", path=f"corrupt-{LZHUF_METHOD}",
+        same_as_cpu=json.dumps({str(k): v for k, v in outcomes.items()}))
     return blobs[LZHUF_METHOD], counts[LZHUF_METHOD]
 
 
@@ -1677,7 +1791,6 @@ def main() -> int:
                                          blobs[0][hdr_len:-8])
     dec = phase_decode_slice(batches[0], blobs)
     phase_decode_timing(batches[0], blobs, smi)
-    del blobs
     parse_v1, lz_walk = phase_lzhuf_kernels(small["mixed"], batches[0])
     lz_blobs, lz = phase_lzhuf_slice(batches[0], small["mixed"])
     phase_lzhuf_timing(batches[1:], batches[0], lz_blobs, smi)
@@ -1692,6 +1805,7 @@ def main() -> int:
     del bz_blobs
     phase_bzip2_encode_timing(batches[1:], smi)
     reach, reach_n, v3w, v3w_n = phase_parse_kernels_8_9(batches[0], small)
+    phase_decode_profile(blobs)
     log("total", script_s=f"{time.perf_counter() - start:.1f}")
     # Each kernel's launches come from its own main-path call: gzip encode
     # (#1), gzip decode (#2, #3), lh5 encode (#4), lh5 decode (#5), bzip2

@@ -162,6 +162,73 @@ def test_parse_v1_matches_jax_pallas_interpret(lazy, n):
     assert (mlen >= 3).any()
 
 
+def _parse_v1_both(blocks, span_off, block_len, window, block, n,
+                   max_match, lazy):
+    """(the port's plain v1 walk, JAX's parse_extend_pallas in interpret
+    mode) on the same screened blocks: each (reach, mlen) as numpy."""
+    bj, bs, words, _ = jmf.screen_candidates(
+        jnp.asarray(blocks.astype(np.int32)), jnp.asarray(span_off),
+        jnp.int32(n), 8, window, block, max_match)
+    sl = slice(window, window + block)
+    bs, bj = np.asarray(bs)[:, sl], np.asarray(bj)[:, sl]
+    words = np.asarray(words).view(np.int32)
+    want = tuple(map(np.asarray, parse_extend_pallas(
+        bs, bj, jnp.asarray(words), jnp.asarray(block_len[:, None]), window,
+        max_match=max_match, lazy=lazy, interpret=True)))
+    got = parse.parse_extend_v1_plain(_t(bs), _t(bj), _t(words),
+                                      _t(block_len), window,
+                                      max_match=max_match, lazy=lazy)
+    return tuple(g.numpy() for g in got), want
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_parse_v1_plain_extends_to_cap_on_a_256_byte_repeat(lazy):
+    """Blocks of nothing but one 256-byte pattern repeated: past the first
+    period every screen saturates and the extension runs to the cap
+    (LZHUF_MAX_MATCH = 256, or the block's end)."""
+    window, block = 512, 1024
+    pattern = np.frombuffer(corpus.random_bytes(256, seed=31), np.uint8)
+    n = 3 * block
+    span = np.zeros(window + 3 * block + 512, np.uint8)
+    span[window:window + n] = np.tile(pattern, n // 256)
+    idx = np.arange(3)[:, None] * block + np.arange(window + block + 512)
+    span_off = (np.arange(3) * block).astype(np.int32)
+    block_len = np.full(3, block, np.int32)
+    (reach, mlen), (reach_w, mlen_w) = _parse_v1_both(
+        span[idx], span_off, block_len, window, block, n,
+        C.LZHUF_MAX_MATCH, lazy)
+    np.testing.assert_array_equal(reach, reach_w)
+    np.testing.assert_array_equal(mlen, mlen_w)
+    assert (mlen == C.LZHUF_MAX_MATCH).sum() >= 3 * (block // 256 - 1)
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_parse_v1_plain_walks_past_block_len(lazy):
+    """A last block of 100 bytes: the walk goes on past block_len to N as
+    the reference's does, and both agree at every position."""
+    n = 2 * 1024 + 100
+    blocks, span_off, block_len, window, block = _small_blocks(n, 77)
+    assert block_len[-1] == 100
+    (reach, mlen), (reach_w, mlen_w) = _parse_v1_both(
+        blocks, span_off, block_len, window, block, n, 258, lazy)
+    np.testing.assert_array_equal(reach, reach_w)
+    np.testing.assert_array_equal(mlen, mlen_w)
+    assert (reach[-1, 100:] > 0).sum() > 0
+
+
+def test_parse_v1_block_size_limit_needs_no_card():
+    """The CUDA kernel holds a 16-bit length and a visited bit a position
+    in one block's shared memory; the wrapper checks N before any launch,
+    from N alone."""
+    parse.check_parse_v1_n(lp.BLOCK)
+    assert parse.parse_v1_shared_bytes(lp.BLOCK) == 2 * 32768 + 4096
+    largest = 32 * (parse.SHARED_LIMIT // 68)  # 68 bytes a 32 positions
+    parse.check_parse_v1_n(largest)
+    for n in (largest + 32, 1 << 17, 0):
+        with pytest.raises(ValueError, match=str(parse.SHARED_LIMIT)):
+            parse.check_parse_v1_n(n)
+
+
 def test_parse_v1_matches_jax_find_matches_at_lh5(lh5_batch):
     """At lh5's geometry the plain walk's tokens and lengths equal the
     reference's CPU route (find_matches, then greedy_parse)."""

@@ -1,26 +1,46 @@
-// Spec-v1 parse walk on Hopper: one CUDA thread per block.
+// Spec-v1 parse walk on Hopper: one CUDA block per block of the parse,
+// lengths in parallel, then a walk through shared memory.
 //
 // Replaces tpz/kernels/parse.py::parse_extend_pallas (the LZHUF encoder's
-// fused greedy parse and winner-match extension). Each thread walks its
-// block from position 0: at p it takes the spec-v1 match length ln(p)
-// (cpp/lzss.cc best_match with the too-far rule): the clamped 8-byte
-// screen s of the winner candidate j; if s saturates (s >= 3 and
-// s >= min(8, cap)) the match is extended by 4-byte compares of the two
-// words while below cap = min(max_match, block_len - p); s < 3, a
-// 3-byte match farther than too_far, or no candidate give a literal.
-// With `lazy`, a match at p becomes a literal when ln(p + 1) > ln(p). The
-// thread stores ln + 1 at every visited position and goes on at
-// p + max(ln, 1) until p >= N, past block_len too, as the reference
-// does. `out` arrives zeroed. The TPU version's 128-lane row caches and
-// read-modify-writes do not carry over.
+// fused greedy parse and winner-match extension). At p the walk takes the
+// spec-v1 match length ln(p) (cpp/lzss.cc best_match with the too-far
+// rule): the clamped 8-byte screen s of the winner candidate j; if s
+// saturates (s >= 3 and s >= min(8, cap)) the match is extended by 4-byte
+// compares of the two words while below cap = min(max_match, block_len -
+// p); s < 3, a 3-byte match farther than too_far, or no candidate give a
+// literal. With `lazy`, a match at p becomes a literal when ln(p + 1) >
+// ln(p). The walk stores ln + 1 at every visited position and goes on at
+// p + max(ln, 1) until p >= N, past block_len too, as the reference does;
+// every other position of `out` gets 0.
 //
-// What bounds it: the walk is serial within a block and every step's
-// loads depend on the previous step's length, so it is latency-bound
-// (a few dependent loads per token, more for long matches). Reads come
-// from global memory; each block's rows are read in order, so they
-// stream through L1 and L2. One thread per 32 KiB block is all the
-// parallelism there is (1,024 threads for 32 MiB); blocks of 32 threads
-// spread them over 32 SMs. Occupancy is left for later work.
+// ln(p) depends on p alone; only the choice of positions is serial. So:
+//   (a) the block's 512 threads compute ln' (ln after the lazy rule, whose
+//       ln(p + 1) the same thread computes) at every position (p, p + 512,
+//       ...: the screen, candidate and side-a word loads are coalesced
+//       across neighbouring positions) into shared memory as 16 bits: the
+//       step max(ln', 1), with kZero for ln' = 0 and kAtCap for ln' = cap
+//       <= 0 (a saturated screen at or past block_len, where ln is the
+//       negative cap);
+//   (b) one thread walks p -> p + step through shared memory, one load
+//       and one add a token, and keeps the visited bits of the current 32
+//       positions in a register, storing each word once;
+//   (c) all threads write `out` and `mlen` in coalesced rows: ln' + 1
+//       where visited, 0 elsewhere, and max(out - 1, 0).
+// Shared memory: 2 bytes a position plus the visited bits, 68 KiB at N =
+// 32,768 (parse_v1_shared_bytes in kernels/parse.py, which checks N
+// against the limit before any launch).
+//
+// What bounds it: (a) reads the screen and candidate rows and the words
+// its extensions compare (mostly from L2: the shared memory leaves L1
+// little room), and extends at every position, the walk's or not; (b)
+// is a chain of dependent shared-memory loads, one load and one add a
+// token, 32 chunks at once, where the TPU-shaped walk paid dependent
+// global loads. Three blocks fit an SM (shared memory, and
+// __launch_bounds__ holds the registers to it), so one block's walk
+// overlaps the others' (a) and (c). On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py) the lh5 headline (NB = 1,024) takes ~0.9 ms against a
+// 0.21 ms bound by bytes; the work of (a) at positions the walk skips is
+// not part of the bound.
 //
 // Layout: screen, best_j, out are [NB, N] int32; words is [NB, M] int32,
 // the u32 little-endian 4-byte window at every haloed position (M-index
@@ -36,26 +56,46 @@ struct Params {
   int N, M, window, max_match, too_far, lazy;
 };
 
+constexpr int kThreads = 512;
+constexpr int kBatch = 4;
+constexpr uint16_t kAtCap = 0x8000;  // ln' = min(max_match, blen - p) <= 0
+constexpr uint16_t kZero = 0x4000;   // ln' = 0
+constexpr uint16_t kStep = 0x3FFF;   // max(ln', 1); max_match < 2^14
+
 __device__ __forceinline__ int lzbytes(uint32_t x) {
   // Equal low-order bytes of a nonzero xor.
   return (__ffs(x) - 1) >> 3;
 }
 
-__device__ __forceinline__ int match_len(const int32_t* __restrict__ srow,
-                                         const int32_t* __restrict__ jrow,
+// A word of the row; indices are clamped into it.
+__device__ __forceinline__ uint32_t word(const uint32_t* __restrict__ wrow,
+                                         int m, const Params& P) {
+  return wrow[min(max(m, 0), P.M - 1)];
+}
+
+// ln(p) from p's screen word sw and winner j.
+__device__ __forceinline__ int match_len(int sw, int j,
                                          const uint32_t* __restrict__ wrow,
                                          int p, int blen, const Params& P) {
-  const int s = min(max(srow[p] + 1, 0), 9) - 1;
-  const int j = jrow[p];
+  const int s = min(max(sw + 1, 0), 9) - 1;
   const int cap = min(P.max_match, blen - p);
   int ln = s;
   if (s >= 3 && s >= min(8, cap)) {
+    // Two compares a trip: the second (at k + 4) counts only when the
+    // first found 4 equal bytes short of the cap, as one compare a trip.
     int k = s;
     while (k < cap) {
-      const uint32_t x = wrow[min(max(p + P.window + k, 0), P.M - 1)] ^
-                         wrow[min(max(j + k, 0), P.M - 1)];
-      if (x != 0) {
-        k = min(k + lzbytes(x), cap);
+      const uint32_t x0 = word(wrow, p + P.window + k, P) ^ word(wrow, j + k, P);
+      const uint32_t x1 =
+          word(wrow, p + P.window + k + 4, P) ^ word(wrow, j + k + 4, P);
+      if (x0 != 0) {
+        k = min(k + lzbytes(x0), cap);
+        break;
+      }
+      k = min(k + 4, cap);
+      if (k >= cap) break;
+      if (x1 != 0) {
+        k = min(k + lzbytes(x1), cap);
         break;
       }
       k = min(k + 4, cap);
@@ -68,46 +108,150 @@ __device__ __forceinline__ int match_len(const int32_t* __restrict__ srow,
   return ln;
 }
 
-__global__ void parse_v1_walk(const int32_t* __restrict__ screen,
-                              const int32_t* __restrict__ best_j,
-                              const int32_t* __restrict__ words,
-                              const int32_t* __restrict__ block_len,
-                              int32_t* __restrict__ out, int NB, Params P) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= NB) return;
+__device__ __forceinline__ bool visited(const uint32_t* vis, int p) {
+  return (vis[p >> 5] >> (p & 31)) & 1u;
+}
+
+// Chunk k's walk began at its start c, a guess; the true walk enters at
+// e, the first position at or past c that it visits (chunk 0 begins at
+// 0, so its walk is true, and so is its exit). From e the true walk goes
+// on until it lands on a position the guessed walk visited, m: from there
+// the two are one walk, and the chunk's exit stands. The guessed bits
+// below m are cleared and the true ones set. Greedy parses meet again
+// within a few tokens; where they do not meet inside the chunk, the true
+// walk runs to the chunk's end and gives its exit.
+__device__ void fix_chunks(const uint16_t* code, uint32_t* vis,
+                           const int* chunk_exit, int C, int N) {
+  int e = chunk_exit[0];
+  for (int c = C, k = 1; c < N; c += C, ++k) {
+    const int end = min(c + C, N);
+    int m = e;
+    while (m < end && !visited(vis, m)) m += code[m] & kStep;
+    const bool met = m < end;
+    const int lim = met ? m : end;
+    for (int w = c >> 5; w << 5 < lim; ++w) {  // clear [c, lim)
+      const int hi = lim - (w << 5);
+      vis[w] &= hi >= 32 ? 0u : ~((1u << hi) - 1u);
+    }
+    for (int q = e; q < lim; q += code[q] & kStep)
+      vis[q >> 5] |= 1u << (q & 31);
+    e = met ? chunk_exit[k] : m;
+  }
+}
+
+// ln' back from its 16-bit code.
+__device__ __forceinline__ int decoded(uint16_t c, int p, int blen,
+                                       const Params& P) {
+  return (c & kAtCap) ? min(P.max_match, blen - p)
+                      : (c & kZero) ? 0 : (int)(c & kStep);
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+    parse_v1_walk(const int32_t* __restrict__ screen,
+                  const int32_t* __restrict__ best_j,
+                  const int32_t* __restrict__ words,
+                  const int32_t* __restrict__ block_len,
+                  int32_t* __restrict__ out, int32_t* __restrict__ mlen,
+                  Params P) {
+  extern __shared__ uint32_t smem[];
+  const int nvis = (P.N + 31) >> 5;
+  uint32_t* vis = smem;                                        // [nvis]
+  uint16_t* code = reinterpret_cast<uint16_t*>(smem + nvis);  // [N]
+  const int b = blockIdx.x;
   const int blen = block_len[b];
   const int32_t* srow = screen + (size_t)b * P.N;
   const int32_t* jrow = best_j + (size_t)b * P.N;
   const uint32_t* wrow =
       reinterpret_cast<const uint32_t*>(words) + (size_t)b * P.M;
   int32_t* orow = out + (size_t)b * P.N;
-  int p = 0;
-  while (p < P.N) {
-    int ln = match_len(srow, jrow, wrow, p, blen, P);
-    if (P.lazy && ln > 0 && p + 1 < blen &&
-        match_len(srow, jrow, wrow, p + 1, blen, P) > ln)
-      ln = 0;
-    orow[p] = ln + 1;
-    p += max(ln, 1);
+  int32_t* lrow = mlen + (size_t)b * P.N;
+  __shared__ int chunk_exit[32];
+
+  // (a) every position's length, after the lazy rule. The screen and
+  // candidate loads of kBatch positions are issued together.
+  for (int i = threadIdx.x; i < nvis; i += kThreads) vis[i] = 0;
+  for (int p0 = threadIdx.x; p0 < P.N; p0 += kBatch * kThreads) {
+    int sw[kBatch], jj[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kThreads;
+      sw[u] = p < P.N ? srow[p] : -1;
+      jj[u] = p < P.N ? jrow[p] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p >= P.N) break;
+      int ln = match_len(sw[u], jj[u], wrow, p, blen, P);
+      if (P.lazy && ln > 0 && p + 1 < blen && p + 1 < P.N &&
+          match_len(srow[p + 1], jrow[p + 1], wrow, p + 1, blen, P) > ln)
+        ln = 0;
+      code[p] = ln < 0 ? (uint16_t)(kAtCap | 1)
+                       : ln == 0 ? (uint16_t)(kZero | 1) : (uint16_t)ln;
+    }
+  }
+  __syncthreads();
+
+  // (b) the walk, by warp 0: each lane walks one of 32 chunks of whole
+  // 32-position words from the chunk's start, as if a token began there
+  // (a guess), keeping the visited bits of its current word in a
+  // register; then lane 0 puts the chunks in order (fix_chunks).
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int C = (P.N + 32 * 32 - 1) / (32 * 32) * 32;
+    const int c0 = lane * C;
+    const int c1 = min(c0 + C, P.N);
+    int p = c0;
+    if (c0 < P.N) {
+      int w = c0 >> 5;
+      uint32_t bits = 0;
+      while (p < c1) {
+        if ((p >> 5) != w) {
+          vis[w] = bits;
+          w = p >> 5;
+          bits = 0;
+        }
+        bits |= 1u << (p & 31);
+        p += code[p] & kStep;
+      }
+      vis[w] = bits;
+    }
+    chunk_exit[lane] = p;
+    __syncwarp();
+    if (lane == 0) fix_chunks(code, vis, chunk_exit, C, P.N);
+  }
+  __syncthreads();
+
+  // (c) the output rows.
+  for (int p = threadIdx.x; p < P.N; p += kThreads) {
+    const int r = visited(vis, p) ? decoded(code[p], p, blen, P) + 1 : 0;
+    orow[p] = r;
+    lrow[p] = max(r - 1, 0);
   }
 }
 
 }  // namespace
 
 // screen, best_j [NB, N] int32, words [NB, M] int32, block_len [NB]
-// int32, out [NB, N] int32 zeroed by the caller. Returns a cudaError_t.
+// int32, out and mlen [NB, N] int32 (every position written). The caller checks
+// that N fits one CUDA block's shared memory and that max_match < 2^14.
+// Returns a cudaError_t.
 extern "C" int tpz_parse_v1_walk(const void* screen, const void* best_j,
                                  const void* words, const void* block_len,
-                                 void* out, int NB, int N, int M, int window,
+                                 void* out, void* mlen, int NB, int N, int M,
+                                 int window,
                                  int max_match, int too_far, int lazy,
                                  cudaStream_t stream) {
-  if (NB == 0) return 0;
+  if (NB == 0 || N == 0) return 0;
   const Params P{N, M, window, max_match, too_far, lazy};
-  const int threads = 32;
-  parse_v1_walk<<<(NB + threads - 1) / threads, threads, 0, stream>>>(
+  const int smem = 4 * ((N + 31) / 32) + 2 * N;
+  cudaError_t err = cudaFuncSetAttribute(
+      parse_v1_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  parse_v1_walk<<<NB, kThreads, smem, stream>>>(
       static_cast<const int32_t*>(screen), static_cast<const int32_t*>(best_j),
       static_cast<const int32_t*>(words),
-      static_cast<const int32_t*>(block_len), static_cast<int32_t*>(out), NB,
-      P);
+      static_cast<const int32_t*>(block_len), static_cast<int32_t*>(out),
+      static_cast<int32_t*>(mlen), P);
   return (int)cudaGetLastError();
 }

@@ -1,40 +1,64 @@
 // LZ77 copy machine on Hopper: match resolution over the dense marker
-// space of the DEFLATE (and later LZHUF) decode.
+// space of the DEFLATE and LZHUF decodes.
 //
 // Replaces tpz/kernels/resolve_walk.py::_phase_call (both phases) and
 // computes resolve_copy_machine's final packed state: index << 8 | byte at
 // every position. Entries are u32 (index << 8 needs 32 bits below 2^24);
 // "resolved" means entry >> 8 == own index, otherwise the entry is a
-// pointer target << 8.
+// pointer target << 8. One launch covers a whole span of up to 2^24
+// positions: the TPU's 2^22-position VMEM chunks do not carry over.
 //
-// Phase 1 (one warp per segment of seg_len positions, segments in
-// parallel). The warp walks its segment in order, 32 positions at a time:
-// it loads the markers, writes the literal state of the window (a
-// non-literal reads as resolved byte 0 until a copy covers it), and finds
-// the first match start by ballot. Byte k of a match (start p, len, dist)
-// reads p - dist + (k mod dist) (the reference's modular re-basing of
-// self-overlap), which always lies before p, so all of a match's bytes
-// are independent and the 32 lanes copy them at once. A source before
-// the segment becomes the pointer max(src, 0) << 8; a source in the
-// segment that is itself a pointer is copied as a pointer (path
-// compression), so every pointer leads into an earlier segment. A copy
-// stops at the segment end: the caller injects a continuation marker at
-// each segment cut.
+// Byte k of a match (start s, len, dist) reads s - dist + (k mod dist)
+// (the reference's modular re-basing of self-overlap), which always lies
+// before s. So every position's source is known from its token alone, and
+// only the chains of copies of copies need resolving.
 //
-// Phase 2 (the design differs from the reference's single in-order chain
-// over the whole span, which would be one thread here). After phase 1 a
-// pointer always targets an earlier position, and a target's entry only
-// ever changes from a pointer to its final resolved value, so every
-// position can follow its own chain at once: one thread per position, in
-// one launch. Chains are as deep as the number of segments the data was
-// copied across (one hop per segment, by path compression).
+// Phase 1 (one CTA of 512 threads per segment of seg_len positions, the
+// segment held in shared memory: 8 bytes a position, 64 KiB at the default
+// 8,192). No walk in token order: the CTA's warps work on the whole
+// segment at once.
+//   A. The CTA stages the segment's markers (coalesced loads); each warp
+//      notes the last token start (a literal or a match marker) in its
+//      contiguous run of 32-position windows.
+//   B. Each lane finds its position's token start by a ballot over its
+//      window, carried from the warps and windows before it; the caller
+//      injects a continuation marker at every segment cut, so no token
+//      start lies before the segment. A match byte becomes a pointer to
+//      its source: a local pointer when the source is in the segment,
+//      else a pointer out of it (to max(src, 0)). Every other position
+//      is resolved with its marker's low byte (a literal's byte; 0 for a
+//      blank no match covers, as the plain version reads it).
+//   C. Pointer jumping in shared memory: each local pointer takes its
+//      target's entry, in rounds, until no local pointer is left (rounds
+//      grow with log2 of the longest chain of copies inside the segment;
+//      entries only move down their own chain, so the rounds work in
+//      place). Every entry is then resolved or points before the segment,
+//      path-compressed to the first source outside it.
+//   D. Coalesced stores of the segment's packed state.
 //
-// What bounds it: phase 1 is a serial walk per segment, latency-bound on
-// the dependent marker and state loads of each token (global memory, L1
-// and L2 resident: a 64 Ki-position segment's state is 256 KiB, more than
-// an SM's shared memory), with one warp per SM in flight. The reference's
-// PHASE2_CAP chunks of 2^22 positions give 64 segments, so at most 64 SMs
-// work at a time. Phase 2 is a bandwidth-bound pass with short chains.
+// Phase 2 (kChains positions a thread, their chains followed in lockstep
+// so that as many loads are in flight; kPhase2Rounds launches). A pointer
+// entry follows its chain for at most kPhase2Hops[r] hops, then stores
+// what it reached (resolved, or a pointer further back). Entries change
+// only along their own chain, so threads read each other's stores in
+// place (through L2, where they land), and chains shorten for everyone. A round that starts after one
+// that left nothing pending returns at once; the last round has no hop
+// limit and always finishes. Each hop crosses at least one segment, so a
+// chain is at most as deep as the segments behind it (2,048 at the
+// default for 2^24 positions, e.g. a run of zeros whose every segment
+// copies the byte before it); the two bounded rounds with their in-place
+// compression bring that down to a few hops for the last.
+//
+// What bounds it: phase 1 moves 8 bytes a position (markers in, state
+// out) and resolves in shared memory with no serial walk; phase 2 reads
+// the state once more, then pays one dependent load a hop, and its warps
+// wait for their longest chain. On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py) a 16 MiB gzip span takes ~0.39 ms, phase 2 ~0.3 of it,
+// against a 0.04 ms bound by bytes. The segment length trades phase 1's
+// shared memory (so CTAs in flight per SM: three at 8,192) against phase
+// 2: shorter segments leave more bytes whose source lies outside their
+// segment and longer cross-segment chains (there 4,096 and 16,384 were
+// 3% and 9% slower than 8,192).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -44,87 +68,170 @@ namespace {
 constexpr uint32_t kKindLit = 1;
 constexpr uint32_t kKindMatch = 2;
 constexpr unsigned kAll = 0xFFFFFFFFu;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+// Phase 1's shared-memory entry: kDone | byte (resolved), kOut | global
+// target (a source before the segment), else a local pointer.
+constexpr uint32_t kDone = 0x80000000u;
+constexpr uint32_t kOut = 0x40000000u;
+constexpr int kPhase2Threads = 256;
+constexpr int kChains = 4;  // positions (chains in flight) a thread
+constexpr int kPhase2Rounds = 3;
+constexpr int kPhase2Hops[kPhase2Rounds] = {64, 64, 0};  // 0: no limit
 
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kThreads, 3)
     resolve_phase1(const uint32_t* __restrict__ markers,
-                   uint32_t* state, int seg_len, int dist_bias) {
-  const int lane = threadIdx.x;
+                   uint32_t* __restrict__ state, int seg_len, int dist_bias) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* mk = smem;            // [seg_len] markers
+  uint32_t* st = smem + seg_len;  // [seg_len] entries
+  __shared__ int warp_last[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int base = blockIdx.x * seg_len;
-  const int end = base + seg_len;
-  int pos = base;
-  while (pos < end) {
-    const int q = pos + lane;
-    const bool valid = q < end;
-    const uint32_t mk = valid ? markers[q] : 0u;
-    const uint32_t kind = mk >> 28;
-    if (valid)
-      state[q] = kind == kKindLit ? ((uint32_t)q << 8) | (mk & 0xFFu)
-                                  : (uint32_t)q << 8;
-    const unsigned matches = __ballot_sync(kAll, valid && kind == kKindMatch);
-    if (matches == 0) {
-      pos += 32;
-      continue;
-    }
-    const int first = __ffs(matches) - 1;
-    const int p = pos + first;
-    const uint32_t mkp = __shfl_sync(kAll, mk, first);
-    const int len = (int)(mkp & 511u);
-    const int dist = (int)((mkp >> 9) & 0xFFFFu) + dist_bias;
-    __syncwarp();  // the window's literal state is visible to every lane
-    if (dist <= 0 || len == 0) {  // corrupt marker: skip it
-      pos = p + 1;
-      continue;
-    }
-    const int n = min(len, end - p);
-    for (int k = lane; k < n; k += 32) {
-      const int dst = p + k;
-      const int src = p - dist + k % dist;
-      uint32_t entry;
-      if (src < base) {
-        entry = (uint32_t)max(src, 0) << 8;
-      } else {
-        const uint32_t s = state[src];
-        entry = (s >> 8) == (uint32_t)src ? ((uint32_t)dst << 8) | (s & 0xFFu)
-                                          : s & 0xFFFFFF00u;
+  const int nwin = seg_len >> 5;
+  const int per_warp = (nwin + kWarps - 1) / kWarps;
+  const int w0 = min(warp * per_warp, nwin);
+  const int w1 = min(w0 + per_warp, nwin);
+
+  // A: stage the markers (independent coalesced loads, several in flight
+  // a thread), then each warp's last token start.
+#pragma unroll 8
+  for (int i = threadIdx.x; i < seg_len; i += kThreads)
+    mk[i] = markers[base + i];
+  __syncthreads();
+  int last = -1;
+  for (int w = w0; w < w1; ++w) {
+    const uint32_t kind = mk[(w << 5) + lane] >> 28;
+    const unsigned starts =
+        __ballot_sync(kAll, kind == kKindLit || kind == kKindMatch);
+    if (starts) last = (w << 5) + 31 - __clz(starts);
+  }
+  if (lane == 0) warp_last[warp] = last;
+  __syncthreads();
+
+  // B: token starts and each position's first entry.
+  int carry = lane < warp ? warp_last[lane] : -1;
+  for (int o = 16; o; o >>= 1)
+    carry = max(carry, __shfl_xor_sync(kAll, carry, o));
+  for (int w = w0; w < w1; ++w) {
+    const int i = (w << 5) + lane;
+    const uint32_t m = mk[i];
+    const uint32_t kind = m >> 28;
+    const unsigned starts =
+        __ballot_sync(kAll, kind == kKindLit || kind == kKindMatch);
+    const unsigned upto = starts & (kAll >> (31 - lane));
+    const int s = upto ? (w << 5) + 31 - __clz(upto) : carry;
+    if (starts) carry = (w << 5) + 31 - __clz(starts);
+    uint32_t e = kDone | (m & 0xFFu);
+    if (s >= 0) {
+      const uint32_t ms = mk[s];
+      const int len = (int)(ms & 511u);
+      const int dist = (int)((ms >> 9) & 0xFFFFu) + dist_bias;
+      const int k = i - s;
+      if ((ms >> 28) == kKindMatch && dist > 0 && k < len) {
+        const int src = s - dist + k % dist;
+        e = src >= 0 ? (uint32_t)src : kOut | (uint32_t)max(base + src, 0);
       }
-      state[dst] = entry;
     }
-    __syncwarp();  // the copy is visible before the next window reads
-    pos = p + n;
+    st[i] = e;
+  }
+  __syncthreads();
+
+  // C: pointer jumping over the local pointers.
+  for (;;) {
+    int pending = 0;
+    for (int i = threadIdx.x; i < seg_len; i += kThreads) {
+      const uint32_t e = st[i];
+      if (e < kOut) {
+        const uint32_t f = st[e];
+        st[i] = f;
+        pending |= f < kOut;
+      }
+    }
+    if (!__syncthreads_or(pending)) break;
+  }
+
+  // D: the packed state.
+  for (int i = threadIdx.x; i < seg_len; i += kThreads) {
+    const uint32_t e = st[i];
+    const uint32_t g = (uint32_t)(base + i);
+    state[g] = (e & kDone) ? (g << 8) | (e & 0xFFu) : (e & (kOut - 1)) << 8;
   }
 }
 
-__global__ void resolve_phase2(uint32_t* state, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t cur = state[i] >> 8;
-  if (cur == (uint32_t)i) return;
-  uint32_t s;
-  for (;;) {  // targets strictly decrease, so this ends
-    s = state[cur];
-    const uint32_t nxt = s >> 8;
-    if (nxt == cur) break;
-    cur = nxt;
+__global__ void __launch_bounds__(kPhase2Threads)
+    resolve_phase2(uint32_t* state, int n, int hops, int* pending,
+                   int round) {
+  if (round > 0 && *(volatile int*)&pending[round - 1] == 0) return;
+  const int base = blockIdx.x * kPhase2Threads * kChains + threadIdx.x;
+  int idx[kChains];
+  uint32_t cur[kChains];
+  bool live[kChains];
+#pragma unroll
+  for (int u = 0; u < kChains; ++u) {
+    idx[u] = base + u * kPhase2Threads;
+    live[u] = idx[u] < n;
+    cur[u] = live[u] ? state[idx[u]] >> 8 : 0;
+    live[u] = live[u] && cur[u] != (uint32_t)idx[u];
   }
-  state[i] = ((uint32_t)i << 8) | (s & 0xFFu);
+  int left = 0;
+  for (int h = 1;; ++h) {  // targets strictly decrease, so this ends
+    uint32_t s[kChains];
+#pragma unroll
+    for (int u = 0; u < kChains; ++u)
+      if (live[u]) s[u] = __ldcg(&state[cur[u]]);
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kChains; ++u) {
+      if (!live[u]) continue;
+      const uint32_t nxt = s[u] >> 8;
+      if (nxt == cur[u]) {
+        state[idx[u]] = ((uint32_t)idx[u] << 8) | (s[u] & 0xFFu);
+        live[u] = false;
+      } else if (h == hops) {
+        state[idx[u]] = nxt << 8;
+        live[u] = false;
+        ++left;
+      } else {
+        cur[u] = nxt;
+        any = true;
+      }
+    }
+    if (!any) break;
+  }
+  left = __reduce_add_sync(kAll, left);
+  if (left && (threadIdx.x & 31) == 0) atomicAdd(&pending[round], left);
 }
 
 }  // namespace
 
 // markers and state are [n_seg * seg_len] int32, with n_seg * seg_len <=
-// 2^24; phase2 = 0 for a single segment (phase 1 alone resolves it).
-// Returns a cudaError_t.
-extern "C" int tpz_resolve_walk(const void* markers, void* state, int n_seg,
-                                int seg_len, int dist_bias, int phase2,
-                                cudaStream_t cuda_stream) {
+// 2^24 and seg_len a multiple of 32 whose 8 * seg_len bytes fit one CTA's
+// shared memory; pending is [3] int32, zeroed by the caller. Returns a
+// cudaError_t.
+extern "C" int tpz_resolve_walk(const void* markers, void* state,
+                                void* pending, int n_seg, int seg_len,
+                                int dist_bias, cudaStream_t cuda_stream) {
   if (n_seg == 0 || seg_len == 0) return 0;
-  resolve_phase1<<<n_seg, 32, 0, cuda_stream>>>(
+  const int smem = 2 * seg_len * (int)sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      resolve_phase1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  resolve_phase1<<<n_seg, kThreads, smem, cuda_stream>>>(
       static_cast<const uint32_t*>(markers), static_cast<uint32_t*>(state),
       seg_len, dist_bias);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !phase2) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int n = n_seg * seg_len;
-  resolve_phase2<<<(n + 255) / 256, 256, 0, cuda_stream>>>(
-      static_cast<uint32_t*>(state), n);
-  return (int)cudaGetLastError();
+  for (int r = 0; r < kPhase2Rounds; ++r) {
+    const int per_block = kPhase2Threads * kChains;
+    resolve_phase2<<<(n + per_block - 1) / per_block, kPhase2Threads, 0,
+                     cuda_stream>>>(
+        static_cast<uint32_t*>(state), n, kPhase2Hops[r],
+        static_cast<int*>(pending), r);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -25,6 +25,9 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
 LIB_NAME = "libtpz_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Shared memory one CUDA block may opt into on an H100 (sm_90); wrappers
+# check their kernels' needs against it before a launch.
+SHARED_LIMIT = 232448
 
 _LIB = None
 
@@ -83,9 +86,9 @@ def lib() -> ctypes.CDLL:
         L.tpz_symbol_walk.restype = ci
         L.tpz_symbol_walk.argtypes = [vp] * 10 + [ci] * 4 + [vp]
         L.tpz_resolve_walk.restype = ci
-        L.tpz_resolve_walk.argtypes = [vp] * 2 + [ci] * 4 + [vp]
+        L.tpz_resolve_walk.argtypes = [vp] * 3 + [ci] * 3 + [vp]
         L.tpz_parse_v1_walk.restype = ci
-        L.tpz_parse_v1_walk.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+        L.tpz_parse_v1_walk.argtypes = [vp] * 6 + [ci] * 7 + [vp]
         L.tpz_lzhuf_walk.restype = ci
         L.tpz_lzhuf_walk.argtypes = [vp] * 6 + [ci] * 2 + [vp]
         L.tpz_bzip2_walk.restype = ci

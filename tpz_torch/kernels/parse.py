@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from tpz_torch.kernels._build import SHARED_LIMIT
 from tpz_torch.utils.bits import U32
 
 RAW = 1 << 30
@@ -553,13 +554,30 @@ def _reach_doubling(step: torch.Tensor) -> torch.Tensor:
     return reach[:, :N] > 0
 
 
+def parse_v1_shared_bytes(N: int) -> int:
+    """The v1 walk kernel's shared memory for blocks of N positions: a
+    16-bit length and a visited bit a position."""
+    return 4 * ((N + 31) // 32) + 2 * N
+
+
+def check_parse_v1_n(N: int) -> None:
+    """Raises ValueError unless one CUDA block of the v1 walk kernel holds
+    a block of N positions in shared memory (N = 32,768 at lh4-lh7)."""
+    need = parse_v1_shared_bytes(N)
+    if N < 1 or need > SHARED_LIMIT:
+        raise ValueError(
+            f"v1 parse walk: N={N} needs {need} bytes of shared memory; a "
+            f"CUDA block holds at most {SHARED_LIMIT}")
+
+
 def parse_extend_v1(screen, best_j, words, block_len, window: int,
                     max_match: int = 258, too_far: int = 4096,
                     lazy: bool = False):
     """The spec-v1 parse walk: the plain version for CPU tensors, the
-    CUDA kernel (csrc/parse_v1_walk.cu, one thread per block) for CUDA
-    tensors. Arguments and results as parse_extend_v1_plain; all int32
-    and contiguous."""
+    CUDA kernel (csrc/parse_v1_walk.cu: one CUDA block per parse block,
+    lengths at every position in parallel, then the walk through shared
+    memory) for CUDA tensors. Arguments and results as
+    parse_extend_v1_plain; all int32 and contiguous."""
     if screen.device.type == "cpu":
         return parse_extend_v1_plain(screen, best_j, words, block_len,
                                      window, max_match, too_far, lazy)
@@ -567,6 +585,10 @@ def parse_extend_v1(screen, best_j, words, block_len, window: int,
         raise ValueError(f"v1 parse walk: unsupported device {screen.device}")
     NB, N = screen.shape
     M = words.shape[1]
+    check_parse_v1_n(N)
+    if not 0 <= max_match < 1 << 14:
+        raise ValueError(f"v1 parse walk: max_match {max_match} outside "
+                         "[0, 16384)")
     for name, t, shape in (("screen", screen, (NB, N)),
                            ("best_j", best_j, (NB, N)),
                            ("words", words, (NB, M)),
@@ -577,19 +599,20 @@ def parse_extend_v1(screen, best_j, words, block_len, window: int,
                 f"v1 parse walk: {name} must be a contiguous int32 tensor "
                 f"of shape {shape} on {screen.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
-    out = torch.zeros((NB, N), dtype=torch.int32, device=screen.device)
+    out = torch.empty((NB, N), dtype=torch.int32, device=screen.device)
+    mlen = torch.empty_like(out)
     from tpz_torch.kernels import _build
 
     with torch.cuda.device(screen.device):
         rc = _build.lib().tpz_parse_v1_walk(
             screen.data_ptr(), best_j.data_ptr(), words.data_ptr(),
-            block_len.data_ptr(), out.data_ptr(), NB, N, M, window,
-            max_match, too_far, int(lazy),
+            block_len.data_ptr(), out.data_ptr(), mlen.data_ptr(), NB, N, M,
+            window, max_match, too_far, int(lazy),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"v1 parse walk kernel launch failed: cudaError {rc}")
     parse_extend_v1.launches += 1
-    return out, torch.clamp(out - 1, min=0)
+    return out, mlen
 
 
 parse_extend_v1.launches = 0

@@ -11,23 +11,37 @@ another position; the plaintext is `state & 0xFF`.
 
 Two resolvers with the same final state on valid markers:
   copy machine   the CUDA kernel (csrc/resolve_walk.cu), for CUDA tensors.
-                 Phase 1 walks segments of `segment_rows * 128` positions
-                 in order, in parallel across segments; copies that reach
-                 before their segment become pointers. Phase 2 follows
-                 those pointers (they always lead to an earlier segment).
+                 Phase 1 resolves segments of `segment_rows * 128`
+                 positions, one CUDA block each, in shared memory: every
+                 match byte points at its source and pointer jumping
+                 follows the chains inside the segment; a source before
+                 the segment stays a pointer. Phase 2 follows those
+                 pointers in a few rounds over the whole span.
+                 `resolve_segments_plain` is its torch twin (the same
+                 segments, entries and rounds), which only the tests run.
   doubling       the plain torch version, for CPU tensors: every match
                  byte points at its source, and pointer doubling rounds
                  resolve all positions at once. Its state rides in int64,
                  so no span bound applies (the reference's separate
                  unpacked "wide" doubling is not needed).
-Spans above PHASE2_CAP are resolved in chunks chained through a halo of
-already-resolved output (`resolve_dense`), as in the reference.
+
+`resolve_dense` resolves a span in one call up to its device's span cap:
+MAX_PACKED_SPAN on a card (the packed state's bound), the reference's
+PHASE2_CAP on the CPU, so the CPU route keeps the reference's structure.
+Longer spans are resolved in chunks chained through a halo of
+already-resolved output, as in the reference. On valid markers the bytes
+are the same either way. On corrupt markers (a stream whose CRC or
+length check then fails) the two routes, and the kernel and the plain
+version, may give different bytes: matches that overlap other tokens,
+zero distances or sources before the span are resolved by each in its
+own way.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpz_torch.kernels._build import SHARED_LIMIT
 from tpz_torch.utils.bits import srl32, to_i32
 
 _KIND_LIT = 1
@@ -35,12 +49,16 @@ _KIND_MATCH = 2
 _LIT0 = _KIND_LIT << 28          # a literal 0 byte: the padding marker
 
 # The reference's chunk bound (one phase-2 pass held the span in TPU
-# VMEM) and its halo, kept as they are: the halo must cover the format's
-# LZ window (DEFLATE 32 KiB, lh7 64 KiB).
+# VMEM), the CPU route's chunk, and the halo, kept as they are: the halo
+# must cover the format's LZ window (DEFLATE 32 KiB, lh7 64 KiB).
 PHASE2_CAP = 1 << 22
 HALO = 1 << 16
-SEGMENT_ROWS = 512               # phase-1 segment: 512 rows of 128
 MAX_PACKED_SPAN = 1 << 24        # index << 8 must fit in 32 bits
+# Phase-1 segment: 64 rows of 128 = 8,192 positions, 64 KiB of shared
+# memory (markers and entries, 4 bytes each) a CUDA block.
+SEGMENT_ROWS = 64
+# Phase 2's rounds: the hops each may take (0: no limit).
+PHASE2_HOPS = (64, 64, 0)
 
 
 def _token_start(markers: torch.Tensor) -> torch.Tensor:
@@ -135,23 +153,33 @@ def _check(markers: torch.Tensor) -> None:
             f"{MAX_PACKED_SPAN}, got {markers.dtype} {tuple(markers.shape)}")
 
 
+def _check_segment(segment_rows: int) -> None:
+    """Raises unless phase 1's segment (markers and entries, 4 bytes each
+    a position) fits one CUDA block's shared memory."""
+    need = 8 * 128 * segment_rows
+    if segment_rows < 1 or need > SHARED_LIMIT:
+        raise ValueError(
+            f"copy machine: segment_rows {segment_rows} needs {need} bytes "
+            f"of shared memory; a CUDA block holds at most {SHARED_LIMIT}")
+
+
 def resolve_copy_machine(markers: torch.Tensor, dist_bias: int = 0,
                          segment_rows: int = SEGMENT_ROWS) -> torch.Tensor:
     """[N] int32 dense markers (N % 128 == 0, N <= 2^24) -> [N] int32
     final packed state (u32 bit patterns). CPU tensors take the doubling
-    plain version; CUDA tensors launch the copy-machine kernel.
+    plain version; CUDA tensors launch the copy-machine kernel: phase 1
+    over segments of `segment_rows` rows of 128, then phase 2's rounds,
+    all on the current stream.
 
-    The host side keeps the reference's structure: one segment resolves in
-    phase 1 alone; otherwise boundary carries are injected at every
-    segment cut, the tail is padded to whole segments with literal
-    markers, and phase 2 follows."""
+    The host side keeps the reference's structure: boundary carries are
+    injected at every segment cut and the tail is padded to whole
+    segments with literal markers."""
     if markers.device.type == "cpu":
         return to_i32(resolve_doubling_state(markers, dist_bias))
     if markers.device.type != "cuda":
         raise ValueError(f"copy machine: unsupported device {markers.device}")
     _check(markers)
-    if segment_rows < 1:
-        raise ValueError(f"copy machine: segment_rows {segment_rows} < 1")
+    _check_segment(segment_rows)
     N = markers.shape[0]
     if N == 0:
         return markers.clone()
@@ -162,56 +190,149 @@ def resolve_copy_machine(markers: torch.Tensor, dist_bias: int = 0,
 
 
 resolve_copy_machine.launches = 0
-# Phase 2 runs for a span of more than one segment (two_phase).
+# One launch runs phase 1, then len(PHASE2_HOPS) rounds of phase 2.
 resolve_copy_machine.kernels = ("resolve_phase1", "resolve_phase2")
 
 
-def _prepare(markers: torch.Tensor, dist_bias: int,
-             segment_rows: int) -> tuple:
-    """The copy machine's launch arguments for N > 0 checked markers:
-    (segment-padded markers with boundary carries, state buffer, segment
-    count, segment length, dist_bias, two_phase)."""
+def _segments(markers: torch.Tensor, segment_rows: int) -> tuple:
+    """(markers with boundary carries at every segment cut, padded with
+    literal markers to whole segments; segment count; segment length) for
+    N > 0 markers whose length is a multiple of 128."""
     rows = markers.shape[0] // 128
     sr = min(segment_rows, rows)
-    single = rows <= sr
-    arr = markers if single else _inject_boundary_carries(markers, sr * 128)
+    arr = markers if rows <= sr else _inject_boundary_carries(markers,
+                                                              sr * 128)
     pad = (-rows) % sr
     if pad:
         arr = torch.cat([arr, torch.full((pad * 128,), _LIT0,
                                          dtype=torch.int32,
                                          device=arr.device)])
-    return (arr, torch.empty_like(arr), (rows + pad) // sr, sr * 128,
-            dist_bias, int(not single))
+    return arr, (rows + pad) // sr, sr * 128
 
 
-def _launch(arr, state, n_seg, seg_len, dist_bias, two_phase) -> None:
-    """One copy-machine launch (both phases) on the current stream."""
+def _prepare(markers: torch.Tensor, dist_bias: int,
+             segment_rows: int) -> tuple:
+    """The copy machine's launch arguments for N > 0 checked markers:
+    (segment-padded markers with boundary carries, state buffer, phase 2's
+    pending counts, segment count, segment length, dist_bias)."""
+    arr, n_seg, seg_len = _segments(markers, segment_rows)
+    pending = torch.zeros(len(PHASE2_HOPS), dtype=torch.int32,
+                          device=arr.device)
+    return (arr, torch.empty_like(arr), pending, n_seg, seg_len, dist_bias)
+
+
+def _launch(arr, state, pending, n_seg, seg_len, dist_bias) -> None:
+    """One copy-machine launch (phase 1, then phase 2's rounds) on the
+    current stream; `pending` must be zero."""
     from tpz_torch.kernels import _build
 
     with torch.cuda.device(arr.device):
         rc = _build.lib().tpz_resolve_walk(
-            arr.data_ptr(), state.data_ptr(), n_seg, seg_len, dist_bias,
-            two_phase, torch.cuda.current_stream().cuda_stream)
+            arr.data_ptr(), state.data_ptr(), pending.data_ptr(), n_seg,
+            seg_len, dist_bias, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"copy machine kernel launch failed: cudaError {rc}")
 
 
+def _phase1_plain(arr: torch.Tensor, n_seg: int, seg_len: int,
+                  dist_bias: int) -> torch.Tensor:
+    """Phase 1 of the copy machine in torch, every segment at once:
+    [n_seg * seg_len] int32 segment-padded markers -> int64 packed state,
+    each position resolved or pointing before its segment."""
+    m = arr.reshape(n_seg, seg_len).to(torch.int64) & 0xFFFFFFFF
+    loc = torch.arange(seg_len, device=arr.device, dtype=torch.int64)
+    base = torch.arange(n_seg, device=arr.device,
+                        dtype=torch.int64)[:, None] * seg_len
+    kind = m >> 28
+    is_start = (kind == _KIND_LIT) | (kind == _KIND_MATCH)
+    s = torch.cummax(torch.where(is_start, loc, -1), dim=1).values
+    ms = m.gather(1, torch.clamp(s, min=0))
+    mlen = ms & 511
+    dist = ((ms >> 9) & 0xFFFF) + dist_bias
+    k = loc - s
+    inside = ((s >= 0) & ((ms >> 28) == _KIND_MATCH) & (dist > 0)
+              & (k < mlen))
+    src = s - dist + k % torch.clamp(dist, min=1)
+    local = inside & (src >= 0)
+    out = inside & (src < 0)
+    # Pointer jumping over the local pointers: each position ends at the
+    # root of its chain inside the segment (resolved, or pointing out).
+    ptr = torch.where(local, src, loc)
+    while True:
+        nxt = ptr.gather(1, ptr)
+        if torch.equal(nxt, ptr):
+            break
+        ptr = nxt
+    root_out = out.gather(1, ptr)
+    target = torch.clamp(base + src, min=0).gather(1, ptr)
+    byte = (m & 0xFF).gather(1, ptr)
+    gpos = base + loc
+    return torch.where(root_out, target << 8, (gpos << 8) | byte).reshape(-1)
+
+
+def _phase2_round_plain(state: torch.Tensor, hops: int) -> torch.Tensor:
+    """One round of phase 2 in torch (synchronous: every chain starts from
+    the round's input state): each pointer follows its chain for at most
+    `hops` hops (0: until resolved) and keeps what it reached."""
+    idx = torch.arange(state.shape[0], device=state.device,
+                       dtype=torch.int64)
+    cur = state >> 8
+    live = cur != idx
+    out = state.clone()
+    h = 0
+    while bool(live.any()) and (hops == 0 or h < hops):
+        s = state[cur]
+        done = live & ((s >> 8) == cur)
+        out = torch.where(done, (idx << 8) | (s & 0xFF), out)
+        live = live & ~done
+        cur = torch.where(live, s >> 8, cur)
+        h += 1
+    return torch.where(live, cur << 8, out)
+
+
+def resolve_segments_plain(markers: torch.Tensor, dist_bias: int = 0,
+                           segment_rows: int = SEGMENT_ROWS) -> torch.Tensor:
+    """The copy machine's torch twin: [N] int32 markers (N % 128 == 0,
+    N > 0) -> [N] int64 final packed state, by the kernel's decomposition:
+    the same boundary carries and segments, phase 1 per segment, then
+    phase 2's rounds. It runs on any device; nothing on the card path
+    calls it."""
+    arr, n_seg, seg_len = _segments(markers, segment_rows)
+    state = _phase1_plain(arr, n_seg, seg_len, dist_bias)
+    for hops in PHASE2_HOPS:
+        state = _phase2_round_plain(state, hops)
+    return state[:markers.shape[0]]
+
+
+def span_chunks(device_type: str) -> tuple[int, int]:
+    """(the longest span resolve_dense resolves in one call, the chunk
+    length of longer spans) on a device type: the packed state's bound on
+    a card, whose chunks leave room for the halo; the reference's
+    PHASE2_CAP on the CPU."""
+    if device_type == "cpu":
+        return PHASE2_CAP, PHASE2_CAP
+    return MAX_PACKED_SPAN, MAX_PACKED_SPAN - HALO
+
+
 def resolve_dense(markers: torch.Tensor, dist_bias: int = 0) -> torch.Tensor:
     """Flat [N] int32 dense markers (N % 128 == 0) -> [N] uint8 plaintext.
-    Spans past PHASE2_CAP resolve chunk by chunk; each later chunk is
-    preceded by the previous chunk's last HALO bytes as literal markers,
-    so its backward copies land in range (HALO >= the LZ window)."""
+    A span up to the device's cap (span_chunks) resolves in one
+    copy-machine call. Longer spans resolve chunk by chunk; each later
+    chunk is preceded by the previous chunk's last HALO bytes as literal
+    markers, so its backward copies land in range (HALO >= the LZ
+    window)."""
     N = markers.shape[0]
-    if N <= PHASE2_CAP:
+    cap, step = span_chunks(markers.device.type)
+    if N <= cap:
         st = resolve_copy_machine(markers, dist_bias)
         return (st & 0xFF).to(torch.uint8)
     # A match crossing a chunk cut restarts there as a carry; its dist is
     # within the window, so the restarted copy reads the halo.
-    markers = _inject_boundary_carries(markers, PHASE2_CAP)
+    markers = _inject_boundary_carries(markers, step)
     outs = []
     tail = None
-    for lo in range(0, N, PHASE2_CAP):
-        part = markers[lo:lo + PHASE2_CAP]
+    for lo in range(0, N, step):
+        part = markers[lo:lo + step]
         n = part.shape[0]
         ext = part if tail is None else torch.cat([tail, part])
         st = resolve_copy_machine(ext, dist_bias)
