@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """A parent checkout against this one, in turns on one NVIDIA GPU: the
-end-to-end metrics of the paths through the copy machine (#3) and the v1
-parse walk (#4), and those two wrappers at the headline shapes.
+end-to-end metrics of the gzip main path, through the v3 parse walk (#1)
+and the inflate symbol walk (#2), and those two wrappers at the headline
+shapes.
 
     git archive <parent commit> | tar -x -C build/parent
     python3 ab_e2e.py build/parent [--pairs 3]
@@ -9,13 +10,14 @@ parse walk (#4), and those two wrappers at the headline shapes.
 Each run is a process of its own on one checkout (its kernels and oracle
 build into that checkout's build/), in the order parent, change, change,
 parent, ... over the same 2 x 16 MiB of corpus.mixed (seeds 1000, 1001,
-as chip_smoke.py). A run prints one JSON line: gzip decode, lh5 encode
-and lh5 decode MB/s (median of 3 warm calls, as chip_smoke.py phases 8
-and 11, all on the same buffers), `resolve_dense` on the 16 MiB
-segmented gzip span and `parse_extend_v1` on the lh5 headline blocks
-(CUDA events, mean of 5 warm calls). The last line gives each metric's
-runs by side. Needs both checkouts' chip_smoke.py, whose functions make
-the inputs.
+as chip_smoke.py). A run prints one JSON line: gzip encode (level 6) and
+gzip decode MB/s (median of 3 warm calls, as chip_smoke.py phases 5 and
+8, all on the same buffers), `parse_extend_v3` on the headline's parse
+inputs and `symbol_walk` on the segmented layout of the first buffer's
+gzip body (the headline decode dispatch's own input; with the layout's
+end-bit hint where the checkout has one), both by CUDA events, mean of 5
+warm calls. The last line gives each metric's runs by side. Needs both
+checkouts' chip_smoke.py, whose functions make the inputs.
 """
 
 from __future__ import annotations
@@ -27,10 +29,9 @@ import statistics
 import subprocess
 import sys
 import time
-import zlib
 
-METRICS = ("gzip_decode_mb_s", "lh5_encode_mb_s", "lh5_decode_mb_s",
-           "resolve_16MiB_ms", "parse_v1_ms")
+METRICS = ("gzip_encode_mb_s", "gzip_decode_mb_s", "parse_v3_ms",
+           "symbol_walk_ms")
 
 
 def run_side(data_path: str) -> dict:
@@ -40,34 +41,35 @@ def run_side(data_path: str) -> dict:
     import torch
     import chip_smoke as cs
     from tpz_torch import api
+    from tpz_torch.codecs import gzip_codec
+    from tpz_torch.codecs.deflate import DeflateConfig
     from tpz_torch.kernels import inflate_pipeline as ip
     from tpz_torch.kernels import parse
-    from tpz_torch.kernels import resolve_walk as rw
 
     bufs = [a.tobytes() for a in np.load(data_path).values()]
     total = sum(map(len, bufs))
     gz = api.compress_many(bufs, "gzip", 6, device="cuda")
-    lh = api.compress_many(bufs, "lh5", device="cuda")
     out = {}
     for name, fn in (
+            ("gzip_encode_mb_s",
+             lambda: api.compress_many(bufs, "gzip", 6, device="cuda")),
             ("gzip_decode_mb_s",
-             lambda: api.decompress_many(gz, "gzip", device="cuda")),
-            ("lh5_encode_mb_s",
-             lambda: api.compress_many(bufs, "lh5", device="cuda")),
-            ("lh5_decode_mb_s",
-             lambda: api.decompress_many(lh, "lh5", device="cuda"))):
+             lambda: api.decompress_many(gz, "gzip", device="cuda"))):
         fn()
         median, _ = cs.warm_median(lambda _: fn(), range(3))
         out[name] = round(total / median / 1e6, 2)
-    t = cs.segmented_inputs(zlib.compress(bufs[0], 6)[2:-4])
-    dense = cs.dense_markers(t, ip.symbol_walk(*ip._walk_args(t)))
-    rw.resolve_dense(dense)
-    _, out["resolve_16MiB_ms"] = cs.timed(lambda: rw.resolve_dense(dense), 5)
-    del t, dense
-    inputs, window = cs.lzhuf_parse_inputs(bufs, "lh5")
-    run = lambda: parse.parse_extend_v1(*inputs, window, max_match=256)
+    cfg = DeflateConfig(level=6)
+    inputs = cs.parse_inputs(bufs, cfg, "cuda")
+    args = cs._parse_args(cfg)
+    run = lambda: parse.parse_extend_v3(*inputs, *args)
     run()
-    _, out["parse_v1_ms"] = cs.timed(run, 5)
+    _, out["parse_v3_ms"] = cs.timed(run, 5)
+    del inputs
+    t = cs.segmented_inputs(gz[0][len(gzip_codec.header_bytes(6)):-8])
+    kw = {"walk_end_bit": t["walk_end_bit"]} if "walk_end_bit" in t else {}
+    run = lambda: ip.symbol_walk(*ip._walk_args(t), **kw)
+    run()
+    _, out["symbol_walk_ms"] = cs.timed(run, 5)
     torch.cuda.synchronize()
     return out
 

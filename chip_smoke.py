@@ -9,9 +9,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
   1. device   the card's name and power limit, torch and CUDA versions
   2. build    nvcc builds the CUDA kernels, g++ the C++ oracle
   3. kernel   the parse-walk kernel against its plain torch version, on
-              1 MiB of corpus.mixed and of corpus.repetitive at levels 1
-              and 6 (exact equality), then both timed at the headline
-              shape (NB = 512 blocks, restart 16384)
+              1 MiB of corpus.mixed and of corpus.repetitive (nearly
+              every position saturates) at levels 1, 6 and 9, and of
+              corpus.mixed at restart 0 (one walk a 64 KiB block), exact
+              equality (the plain walk on host copies of the inputs),
+              then both timed at the headline shape (NB = 512 blocks,
+              restart 16384)
   4. slice    tpz_torch.api.compress_many on 2 x 16 MiB of corpus.mixed,
               gzip level 6, device "cuda": bodies equal the oracle's bytes,
               gzip.decompress round-trips, the kernel launched
@@ -22,7 +25,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
               (exact markers) and the copy-machine kernel against the
               plain doubling resolve (exact bytes): 1 MiB of
               corpus.mixed and of corpus.repetitive on the TZ-indexed and
-              the segmented route; a match-heavy synthetic marker stream
+              the segmented route, and of corpus.mixed encoded at level
+              1; a match-heavy synthetic marker stream
               (dist 1-4 runs, copies 32 KiB back) with dist_bias 0 and 1,
               at 2^24 positions (one copy-machine launch, chains across
               every segment) and at 2^24 + 2^20 (the chunked route, two
@@ -31,8 +35,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
               dispatch's own input, one launch), both kernels timed there
               beside their plain versions (the copy machine per 16 MiB
               span: its launch alone, at three segment lengths, and
-              through its wrapper); the plain walk runs on host copies of
-              the walk's inputs
+              through its wrapper); the walk also on the headline layout
+              with bits flipped mid-chain in eight chains, and with one
+              record a lane (SPEC_RECORDS = 1), which sends most lane
+              boundaries the slow route; each walk logs its lane
+              boundaries met in pass B, carried through in pass B (the
+              slow route) and re-walked in the stitch; the
+              plain walk runs on host copies of the walk's inputs
   7. decode-slice
               api.decompress_many on the 2 x 16 MiB gzip blobs of phase 4,
               api.decompress on a 16 MiB TZ-indexed member, a stdlib gzip
@@ -143,6 +152,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
               one gzip decode call of phase 4's blobs under torch.profiler
               (as phase 12; the trace must hold the symbol walk's and the
               copy machine's kernels)
+ 21. encode-profile
+              one warm gzip encode call of the headline batch under
+              torch.profiler (as phase 12; the trace must hold the parse
+              walk's kernel)
 The last phase line gives the script's seconds so far. A JSON record of
 the kernels (launches from each one's main-path call:
 gzip encode, gzip decode, lh5 encode, lh5 decode, bzip2 decode, the
@@ -196,7 +209,9 @@ OPS_SYMBOL_MATCH = 137     # ... a match (length and distance extras)
 OPS_V1_VISIT = 31          # #4: a visited position (counted from the
                            # serial walk; the function's own work)
 OPS_V1_EXTEND = 16         # ... one 4-byte extension compare
-OPS_V3_TOKEN = 15          # parse_walk.cu: a token on the mark fast path
+OPS_V3_TOKEN = 15          # #1: a token on the mark fast path (counted
+                           # from the serial walk; the function's own work)
+OPS_V3_EXTEND = 12         # ... one 4-byte extension compare
 OPS_COPY_POSITION = 16     # #3: a position's state and its check
                            # (counted from the serial copy machine)
 OPS_COPY_MATCHED = 12      # ... the copy of one matched position
@@ -407,19 +422,27 @@ def bound_bytes_ops(nbytes, ops) -> dict:
             "bound_by": "bytes" if ms_bytes >= ms_ops else "operations"}
 
 
-def compare_parse(inputs, cfg):
-    """Kernel vs plain on the same CUDA tensors. Returns (max abs
-    difference over live positions, which must be 0; kernel ms; plain ms),
-    each version timed on its first call."""
+def compare_parse(inputs, cfg, restart=None, host=False):
+    """Kernel vs plain on the same CUDA tensors (at `restart` in place of
+    the config's, where given; with `host`, the plain walk on host copies
+    of them). Returns (max abs difference over live positions, which must
+    be 0; kernel ms; plain ms; the kernel's outputs), each version timed
+    on its first call."""
     from tpz_torch.kernels import parse
 
     args = _parse_args(cfg)
+    if restart is not None:
+        args = args[:6] + (restart,) + args[7:]
     before = parse.parse_extend_v3.launches
     got, ms = timed(lambda: parse.parse_extend_v3(*inputs, *args))
     if parse.parse_extend_v3.launches != before + 1:
         raise RuntimeError("parse walk wrapper did not launch its kernel")
-    want, plain_ms = timed(lambda: parse.parse_extend_v3z(
-        *inputs, *args, group=inputs[0].shape[0]))
+    if host:
+        want, plain_ms = timed(lambda: on_host(
+            parse.parse_extend_v3z, *inputs, *args, inputs[0].shape[0]))
+    else:
+        want, plain_ms = timed(lambda: parse.parse_extend_v3z(
+            *inputs, *args, group=inputs[0].shape[0]))
     pos = torch.arange(inputs[0].shape[1], device=inputs[0].device)
     live = pos[None, :] < inputs[4][:, None]
     err = max(int(((g - w).abs() * live).max()) for g, w in zip(got, want))
@@ -432,23 +455,37 @@ def phase_kernel(headline, small):
     from tpz_torch.codecs.deflate import DeflateConfig
     from tpz_torch.kernels import parse
 
+    worst = 0
     for name, data in small.items():
-        for level in (1, 6):
+        for level in (1, 6, 9):
             cfg = DeflateConfig(level=level)
-            err, *_ = compare_parse(parse_inputs([data], cfg, "cuda"), cfg)
-            log("kernel", input=name, level=level, blocks=16, max_abs_err=err)
+            inputs = parse_inputs([data], cfg, "cuda")
+            restarts = (None, 0) if name == "mixed" and level == LEVEL else (
+                None,)
+            for restart in restarts:
+                err, ms, plain_ms, _ = compare_parse(inputs, cfg, restart,
+                                                     host=True)
+                worst = max(worst, err)
+                log("kernel", input=name, level=level,
+                    restart=cfg.restart if restart is None else restart,
+                    blocks=16, max_abs_err=err, first_call_ms=f"{ms:.3f}",
+                    plain_ms=f"{plain_ms:.1f}")
     cfg = DeflateConfig(level=LEVEL)
     inputs = parse_inputs(headline, cfg, "cuda")
     err, cold_ms, plain_ms, got = compare_parse(inputs, cfg)
+    worst = max(worst, err)
     args = _parse_args(cfg)
     _, ms = timed(lambda: parse.parse_extend_v3(*inputs, *args), 5)
+    # The kernel writes visited, mlen and mdist. The serial walk extends a
+    # saturated token from its screen, 4 bytes a compare.
+    b = bound([*inputs, *got], int((got[0] > 0).sum()) * OPS_V3_TOKEN
+              + int((torch.clamp(got[1] - cfg.screen_bytes, min=0)
+                     // 4).sum()) * OPS_V3_EXTEND)
     log("kernel", input="headline", blocks=inputs[0].shape[0],
         restart=cfg.restart, max_abs_err=err, ms=f"{ms:.3f}",
-        first_call_ms=f"{cold_ms:.3f}", plain_ms=f"{plain_ms:.3f}")
-    # The kernel writes one [NB, N] int32 array; visited is its size.
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **bound([*inputs, got[0]],
-                    int((got[0] > 0).sum()) * OPS_V3_TOKEN)}
+        first_call_ms=f"{cold_ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+        bound_ms=f"{b['bound_ms']:.4f}")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def phase_slice(batch):
@@ -540,23 +577,30 @@ def dense_markers(t, markers):
     return ip._place_dense(m, t) if segmented else m.reshape(-1)
 
 
-def compare_walk(t):
+def compare_walk(t, want=None):
     """Symbol-walk kernel vs plain on the same CUDA tensors (the plain
-    walk on host copies of them): (markers, max abs difference, kernel
-    ms, plain ms), each timed on its first call. Raises unless the markers
-    are equal."""
+    walk on host copies of them, unless its markers `want` are given):
+    (markers, max abs difference, kernel ms, plain ms, [lane boundaries
+    met in pass B, carried through in pass B, re-walked in the stitch]),
+    each timed on its first
+    call. The kernel gets the layout's end-bit hint, as the decode does.
+    Raises unless the markers are equal."""
     from tpz_torch.kernels import inflate_pipeline as ip
 
     args = ip._walk_args(t)
     before = ip.symbol_walk.launches
-    got, ms = timed(lambda: ip.symbol_walk(*args))
+    got, ms = timed(lambda: ip.symbol_walk(
+        *args, walk_end_bit=t["walk_end_bit"]))
     if ip.symbol_walk.launches != before + 1:
         raise RuntimeError("symbol walk wrapper did not launch its kernel")
-    want, plain_ms = timed(lambda: on_host(ip.symbol_walk_plain, *args))
+    stats = ip.symbol_walk.last_stats.tolist()
+    plain_ms = None
+    if want is None:
+        want, plain_ms = timed(lambda: on_host(ip.symbol_walk_plain, *args))
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if err:
         raise RuntimeError(f"symbol-walk kernel disagrees with plain: {err}")
-    return got, err, ms, plain_ms
+    return got, err, ms, plain_ms, stats
 
 
 def compare_resolve(dense, dist_bias=0, launches=None):
@@ -620,11 +664,12 @@ def phase_decode_kernels(small, big, body):
         for route, t in (("indexed", indexed_inputs(data)),
                          ("segmented", segmented_inputs(
                              zlib.compress(data, 6)[2:-4]))):
-            markers, e, _, _ = compare_walk(t)
+            markers, e, _, _, stats = compare_walk(t)
             err_w = max(err_w, e)
             err_r = max(err_r, compare_resolve(dense_markers(t, markers)))
             log("decode-kernels", input=name, route=route,
                 entries=t["out_len"].shape[0], walk_max_abs_err=e,
+                walk_boundaries_met_through_serial=stats,
                 resolve_max_abs_err=err_r)
     spans = [("synthetic-runs", rw.MAX_PACKED_SPAN, bias, 1)
              for bias in (0, 1)]
@@ -643,10 +688,12 @@ def phase_decode_kernels(small, big, body):
 
     for name, t in (("16MiB-indexed", indexed_inputs(big)),
                     ("16MiB-segmented-headline", segmented_inputs(body))):
-        markers, e, cold_ms, walk_plain_ms = compare_walk(t)
+        markers, e, cold_ms, walk_plain_ms, stats = compare_walk(t)
         err_w = max(err_w, e)
         args = ip._walk_args(t)
-        _, walk_ms = timed(lambda: ip.symbol_walk(*args), 5)
+        hint = t["walk_end_bit"]
+        _, walk_ms = timed(lambda: ip.symbol_walk(*args, walk_end_bit=hint),
+                           5)
         dense = dense_markers(t, markers)
         err_r = max(err_r, compare_resolve(dense, 0, 1))
         # The copy machine as the main path launches it: once on the whole
@@ -667,7 +714,8 @@ def phase_decode_kernels(small, big, body):
         _, res_plain_ms = timed(lambda: rw.resolve_doubling_state(dense), 3)
         log("decode-kernels", input=name, entries=args[0].shape[0],
             positions=dense.shape[0], segments=prep[3],
-            walk_max_abs_err=e, resolve_max_abs_err=err_r,
+            walk_max_abs_err=e, walk_boundaries_met_through_serial=stats,
+            resolve_max_abs_err=err_r,
             walk_ms=f"{walk_ms:.3f}", walk_first_call_ms=f"{cold_ms:.3f}",
             walk_plain_ms=f"{walk_plain_ms:.3f}",
             resolve_16MiB_ms=f"{res_ms:.3f}",
@@ -675,6 +723,7 @@ def phase_decode_kernels(small, big, body):
                 {r: round(v, 4) for r, v in sorted(by_rows.items())}),
             resolve_16MiB_wrapper_ms=f"{wrap_ms:.3f}",
             resolve_16MiB_plain_ms=f"{res_plain_ms:.3f}")
+    err_w = max(err_w, phase_walk_spec(small, t, markers))
     # The kernels line keeps the headline input's times (the last one).
     walk_bound = bound([*args, markers], walk_ops(
         markers, args[0].numel() + args[3].numel(), OPS_SYMBOL_LITERAL,
@@ -684,6 +733,68 @@ def phase_decode_kernels(small, big, body):
              **walk_bound},
             {"max_abs_err": err_r, "ms": res_ms, "plain_ms": res_plain_ms,
              **res_bound})
+
+
+def phase_walk_spec(small, t, want):
+    """The symbol walk where its speculation can break: the headline layout
+    `t` (plain markers `want`), timed at 32 lanes x 32 records, 64 x 16
+    and the default, then with one record a lane, so that most lane
+    boundaries take the slow route, and with bits flipped mid-chain in
+    eight chains; 1 MiB of corpus.mixed encoded at level 1. Returns the
+    largest difference, which must be 0."""
+    from tpz_torch import api
+    from tpz_torch.codecs import gzip_codec
+    from tpz_torch.kernels import inflate_pipeline as ip
+
+    lanes, records = ip.SPEC_LANES, ip.SPEC_RECORDS
+    args, hint = ip._walk_args(t), t["walk_end_bit"]
+    by_lanes, stats_by_lanes = {}, {}
+    try:
+        for ip.SPEC_LANES, ip.SPEC_RECORDS in ((32, 32), (64, 16),
+                                                (lanes, records)):
+            key = f"{ip.SPEC_LANES}x{ip.SPEC_RECORDS}"
+            _, by_lanes[key] = timed(
+                lambda: ip.symbol_walk(*args, walk_end_bit=hint), 5)
+            stats_by_lanes[key] = ip.symbol_walk.last_stats.tolist()
+        ip.SPEC_RECORDS = 1
+        _, err, ms, _, stats = compare_walk(t, want)
+    finally:
+        ip.SPEC_LANES, ip.SPEC_RECORDS = lanes, records
+    log("decode-kernels", input="16MiB-segmented-headline",
+        walk_ms_by_lanes_x_records=json.dumps(
+            {k: round(v, 4) for k, v in by_lanes.items()}),
+        walk_boundaries_by_lanes_x_records=json.dumps(stats_by_lanes))
+    log("decode-kernels", input="16MiB-segmented-headline-one-record",
+        walk_max_abs_err=err, walk_boundaries_met_through_serial=stats,
+        walk_first_call_ms=f"{ms:.3f}")
+    if stats[1] + stats[2] <= stats[0]:
+        raise RuntimeError(f"one record a lane: the slow route took only "
+                           f"{stats[1] + stats[2]} of the lane boundaries: "
+                           f"{stats}")
+
+    words = t["stream_words"].clone()
+    lo, hi = t["body_bit_local"].tolist(), t["walk_end_bit"].tolist()
+    rng = np.random.default_rng(17)
+    for c in range(0, min(len(lo), 64), 8):
+        for _ in range(5):
+            bit = (lo[c] + hi[c]) // 2 + int(rng.integers(-2000, 2000))
+            flip = 1 << (bit & 31)  # as an int32
+            words[c, bit >> 5] ^= flip - (1 << 32 if flip >> 31 else 0)
+    bad = {**t, "stream_words": words}
+    _, e, _, _, stats = compare_walk(bad)
+    err = max(err, e)
+    log("decode-kernels", input="16MiB-segmented-headline-corrupt",
+        chains_corrupted=8, walk_max_abs_err=e,
+        walk_boundaries_met_through_serial=stats)
+
+    blob = api.compress_many([small["mixed"]], "gzip", level=1,
+                             device="cuda")[0]
+    body = blob[len(gzip_codec.header_bytes(1)):-8]
+    _, e, _, _, stats = compare_walk(segmented_inputs(body))
+    err = max(err, e)
+    log("decode-kernels", input="1MiB-mixed-level-1", walk_max_abs_err=e,
+        walk_boundaries_met_through_serial=stats)
+    return err
 
 
 def copy_ops(markers) -> int:
@@ -809,6 +920,20 @@ def phase_decode_profile(blobs) -> None:
                  "gzip-decode", {"walk": ip.symbol_walk,
                                  "resolve": rw.resolve_copy_machine},
                  phase="decode-profile")
+
+
+def phase_encode_profile(batch) -> None:
+    """One warm gzip encode call of the headline batch under
+    torch.profiler, as phase 12: the parse walk's kernel time and the
+    call's idle share. It runs after phase 20, for the reason phase 20
+    runs last."""
+    from tpz_torch import api
+    from tpz_torch.kernels import parse
+
+    profile_call(lambda: api.compress_many(batch, "gzip", level=LEVEL,
+                                           device="cuda"),
+                 "gzip-encode", {"parse": parse.parse_extend_v3},
+                 phase="encode-profile")
 
 
 def _dict_bits(method: str) -> int:
@@ -1806,6 +1931,7 @@ def main() -> int:
     phase_bzip2_encode_timing(batches[1:], smi)
     reach, reach_n, v3w, v3w_n = phase_parse_kernels_8_9(batches[0], small)
     phase_decode_profile(blobs)
+    phase_encode_profile(batches[0])
     log("total", script_s=f"{time.perf_counter() - start:.1f}")
     # Each kernel's launches come from its own main-path call: gzip encode
     # (#1), gzip decode (#2, #3), lh5 encode (#4), lh5 decode (#5), bzip2

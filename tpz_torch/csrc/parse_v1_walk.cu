@@ -21,9 +21,9 @@
 //       step max(ln', 1), with kZero for ln' = 0 and kAtCap for ln' = cap
 //       <= 0 (a saturated screen at or past block_len, where ln is the
 //       negative cap);
-//   (b) one thread walks p -> p + step through shared memory, one load
-//       and one add a token, and keeps the visited bits of the current 32
-//       positions in a register, storing each word once;
+//   (b) warp 0 walks p -> p + step through shared memory, one load and
+//       one add a token, as 32 chunk walks from guessed starts that lane
+//       0 then puts in order (chunk_walk.cuh, shared with parse_walk.cu);
 //   (c) all threads write `out` and `mlen` in coalesced rows: ln' + 1
 //       where visited, 0 elsewhere, and max(out - 1, 0).
 // Shared memory: 2 bytes a position plus the visited bits, 68 KiB at N =
@@ -49,6 +49,8 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "chunk_walk.cuh"
 
 namespace {
 
@@ -108,37 +110,6 @@ __device__ __forceinline__ int match_len(int sw, int j,
   return ln;
 }
 
-__device__ __forceinline__ bool visited(const uint32_t* vis, int p) {
-  return (vis[p >> 5] >> (p & 31)) & 1u;
-}
-
-// Chunk k's walk began at its start c, a guess; the true walk enters at
-// e, the first position at or past c that it visits (chunk 0 begins at
-// 0, so its walk is true, and so is its exit). From e the true walk goes
-// on until it lands on a position the guessed walk visited, m: from there
-// the two are one walk, and the chunk's exit stands. The guessed bits
-// below m are cleared and the true ones set. Greedy parses meet again
-// within a few tokens; where they do not meet inside the chunk, the true
-// walk runs to the chunk's end and gives its exit.
-__device__ void fix_chunks(const uint16_t* code, uint32_t* vis,
-                           const int* chunk_exit, int C, int N) {
-  int e = chunk_exit[0];
-  for (int c = C, k = 1; c < N; c += C, ++k) {
-    const int end = min(c + C, N);
-    int m = e;
-    while (m < end && !visited(vis, m)) m += code[m] & kStep;
-    const bool met = m < end;
-    const int lim = met ? m : end;
-    for (int w = c >> 5; w << 5 < lim; ++w) {  // clear [c, lim)
-      const int hi = lim - (w << 5);
-      vis[w] &= hi >= 32 ? 0u : ~((1u << hi) - 1u);
-    }
-    for (int q = e; q < lim; q += code[q] & kStep)
-      vis[q >> 5] |= 1u << (q & 31);
-    e = met ? chunk_exit[k] : m;
-  }
-}
-
 // ln' back from its 16-bit code.
 __device__ __forceinline__ int decoded(uint16_t c, int p, int blen,
                                        const Params& P) {
@@ -192,39 +163,16 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
   __syncthreads();
 
-  // (b) the walk, by warp 0: each lane walks one of 32 chunks of whole
-  // 32-position words from the chunk's start, as if a token began there
-  // (a guess), keeping the visited bits of its current word in a
-  // register; then lane 0 puts the chunks in order (fix_chunks).
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const int C = (P.N + 32 * 32 - 1) / (32 * 32) * 32;
-    const int c0 = lane * C;
-    const int c1 = min(c0 + C, P.N);
-    int p = c0;
-    if (c0 < P.N) {
-      int w = c0 >> 5;
-      uint32_t bits = 0;
-      while (p < c1) {
-        if ((p >> 5) != w) {
-          vis[w] = bits;
-          w = p >> 5;
-          bits = 0;
-        }
-        bits |= 1u << (p & 31);
-        p += code[p] & kStep;
-      }
-      vis[w] = bits;
-    }
-    chunk_exit[lane] = p;
-    __syncwarp();
-    if (lane == 0) fix_chunks(code, vis, chunk_exit, C, P.N);
-  }
+  // (b) the walk, by warp 0: 32 chunk walks from guessed starts, put in
+  // order by lane 0 (chunk_walk.cuh).
+  if (threadIdx.x < 32)
+    chunk_walk::walk(code, kStep, vis, chunk_exit, P.N, threadIdx.x);
   __syncthreads();
 
   // (c) the output rows.
   for (int p = threadIdx.x; p < P.N; p += kThreads) {
-    const int r = visited(vis, p) ? decoded(code[p], p, blen, P) + 1 : 0;
+    const int r =
+        chunk_walk::visited(vis, p) ? decoded(code[p], p, blen, P) + 1 : 0;
     orow[p] = r;
     lrow[p] = max(r - 1, 0);
   }

@@ -82,9 +82,9 @@ def lib() -> ctypes.CDLL:
         L = ctypes.CDLL(build())
         vp, ci = ctypes.c_void_p, ctypes.c_int
         L.tpz_parse_walk_v3.restype = ci
-        L.tpz_parse_walk_v3.argtypes = [vp] * 5 + [ci] * 11 + [vp]
+        L.tpz_parse_walk_v3.argtypes = [vp] * 8 + [ci] * 11 + [vp]
         L.tpz_symbol_walk.restype = ci
-        L.tpz_symbol_walk.argtypes = [vp] * 10 + [ci] * 4 + [vp]
+        L.tpz_symbol_walk.argtypes = [vp] * 12 + [ci] * 6 + [vp]
         L.tpz_resolve_walk.restype = ci
         L.tpz_resolve_walk.argtypes = [vp] * 3 + [ci] * 3 + [vp]
         L.tpz_parse_v1_walk.restype = ci

@@ -34,6 +34,7 @@ import torch
 
 from tpz_torch import constants as C
 from tpz_torch import errors, oracle
+from tpz_torch.kernels._build import SHARED_LIMIT
 from tpz_torch.kernels.deflate_pipeline import _device, _nohook
 # Marker layout (resolve_walk's docstring): kind << 28 | payload, with
 # payload = byte for _KIND_LIT and dist << 9 | len for _KIND_MATCH.
@@ -162,11 +163,275 @@ def symbol_walk_plain(stream_words, body_bit_local, out_len, tab, len_base,
     return out.reshape(NB, BLOCK + 1)[:, :BLOCK]
 
 
+# The speculative walk (csrc/symbol_walk.cu): lanes a chain (at most 256),
+# and token starts each lane records for the stitch (E, at most 64). The
+# result depends on neither; E bounds how late a lane may fall into step
+# with the true walk before its boundary takes the slow route.
+SPEC_LANES = 128
+SPEC_RECORDS = 8
+
+_MET, _THROUGH, _ENDED, _NONE = range(4)
+_RANGE, _INVALID, _CAP = range(3)
+
+
+def _token_decoder(stream_words, tab, len_base, len_extra, dist_base,
+                   dist_extra):
+    """decode(chain, bitpos) -> (ok, nbits, nout, marker), int64 tensors:
+    the token at bitpos of each chain's slice, as the serial walk decodes
+    it (ok false for an invalid symbol or distance code, or symbol 256)."""
+    NB, SW = stream_words.shape
+    TW = tab.shape[1]
+    L1B = C.INFLATE_L1_BITS
+    L1M = (1 << L1B) - 1
+    ODIST1 = C.INFLATE_LIT_TW
+    s_flat = as_u32(stream_words).reshape(-1)
+    t_flat = as_u32(tab).reshape(-1)
+    lb, le, db, de = (x.to(torch.int64) for x in (len_base, len_extra,
+                                                   dist_base, dist_extra))
+
+    def decode(chain, bitpos):
+        sh = bitpos & 31
+        wc = chain * SW + torch.clamp(bitpos >> 5, 0, SW - 3)
+        w0, w1, w2 = s_flat[wc], s_flat[wc + 1], s_flat[wc + 2]
+        lo = ((w0 >> sh) | (w1 << (32 - sh))) & U32
+        hi = ((w1 >> sh) | (w2 << (32 - sh))) & U32
+        win = lo | (hi << 32)
+
+        def bits_at(off, n):
+            return (win >> off) & ((1 << n) - 1)
+
+        t_base = chain * TW
+        peek = bits_at(0, 15)
+        e1 = t_flat[t_base + (peek & L1M)]
+        e1b = t_flat[t_base + torch.clamp(
+            (1 << L1B) + (e1 >> 5) + ((peek >> L1B) & 31), max=TW - 1)]
+        e = torch.where((e1 & 31) == 31, e1b, e1)
+        clen = e & 31
+        sym = e >> 5
+        ok = (clen > 0) & (sym != 256) & (sym <= 285)
+        is_match = sym > 256
+        li = torch.clamp(sym - 257, 0, 28)
+        eb = le[li]
+        lval = lb[li] + bits_at(clen, eb)
+        pk = bits_at(clen + eb, 15)
+        d1 = t_flat[t_base + ODIST1 + (pk & L1M)]
+        d1b = t_flat[t_base + torch.clamp(
+            ODIST1 + (1 << L1B) + (d1 >> 5) + ((pk >> L1B) & 31), max=TW - 1)]
+        e2 = torch.where((d1 & 31) == 31, d1b, d1)
+        dlen = e2 & 31
+        ds = torch.clamp(e2 >> 5, 0, 29)
+        ok = ok & (~is_match | (dlen > 0))
+        deb = de[ds]
+        dval = db[ds] + bits_at(clen + eb + dlen, deb)
+        nbits = torch.where(is_match, clen + eb + dlen + deb, clen)
+        nout = torch.where(is_match, lval, 1)
+        mark = torch.where(is_match, (_KIND_MATCH << 28) | (dval << 9) | lval,
+                           (_KIND_LIT << 28) | sym)
+        return ok, nbits, nout, mark
+
+    return decode
+
+
+def _carry(decode, chain, x, c, i, rbit, nrec, end, cap):
+    """The kernel's carry() for many walks at once (1-D int64 tensors;
+    rbit [n, E] the lanes' recorded starts, padded with a bit past every
+    walk): walks at token starts x with counts c go on into a lane's range
+    against its records from index i, until they meet one, reach the
+    range's end or end. Returns (kind, x, c, i)."""
+    kind = torch.full_like(x, -1)
+    pad = torch.full_like(rbit[:, :1], 1 << 62)
+    rb = torch.cat([rbit, pad], dim=1)
+    while True:
+        live = kind < 0
+        if not bool(live.any()):
+            return kind, x, c, i
+        i = torch.maximum(i, (rbit < x[:, None]).sum(1))
+        met = (i < nrec) & (rb.gather(1, i[:, None])[:, 0] == x)
+        ok, nbits, nout, _ = decode(chain, x)
+        for cond, k in ((x >= end, _THROUGH), (met, _MET), (c >= cap, _ENDED),
+                        (~ok, _ENDED)):
+            kind = torch.where((kind < 0) & live & cond, k, kind)
+        step = live & (kind < 0)
+        x = torch.where(step, x + nbits, x)
+        c = torch.where(step, c + nout, c)
+
+
+def symbol_walk_spec_plain(stream_words, body_bit_local, out_len, tab,
+                           len_base, len_extra, dist_base, dist_extra,
+                           start_pos, walk_end_bit=None,
+                           lanes=SPEC_LANES, records=SPEC_RECORDS):
+    """The kernel's torch twin (csrc/symbol_walk.cu), vectorised over
+    chains and lanes: pass A (each lane decodes from its guess, recording
+    its first `records` token starts), pass B (lane k - 1 goes on into
+    lane k's range until the two meet), the stitch in lane order with its
+    slow route, and pass C (each lane stores its confirmed range).
+    Arguments as symbol_walk. Returns (markers [NB, BLOCK] int32, equal to
+    symbol_walk_plain's for any lanes, records and hint; [lane boundaries
+    met in pass B, carried through in pass B without meeting, re-walked
+    in the stitch], as the kernel counts them)."""
+    NB, SW = stream_words.shape
+    dev = stream_words.device
+    L, E = lanes, records
+    decode = _token_decoder(stream_words, tab, len_base, len_extra,
+                            dist_base, dist_extra)
+    i64 = torch.int64
+    olen = torch.clamp(out_len.to(i64), max=BLOCK)
+    start = start_pos.to(i64)
+    cap = olen - start
+    live_chain = start < olen
+    lo = body_bit_local.to(i64)
+    hi = torch.full_like(lo, SW * 32)
+    if walk_end_bit is not None:
+        h = walk_end_bit.to(i64)
+        hi = torch.where((h > lo) & (h <= hi), h, hi)
+    span = torch.clamp(hi - lo, min=0)
+    k = torch.arange(L, device=dev, dtype=i64)
+    g = torch.cat([lo[:, None] + span[:, None] * k // L,
+                   torch.maximum(hi, lo)[:, None]], dim=1)   # [NB, L + 1]
+    big = 1 << 62
+
+    # Pass A, over [NB * L] lanes.
+    chain = torch.arange(NB, device=dev, dtype=i64).repeat_interleave(L)
+    end = g[:, 1:].reshape(-1)
+    capf = cap.repeat_interleave(L)
+    x = g[:, :-1].reshape(-1).clone()
+    n = torch.zeros_like(x)
+    r = torch.zeros_like(x)
+    why = torch.full_like(x, _RANGE)
+    going = live_chain.repeat_interleave(L).clone()
+    rbit = torch.full((NB * L, E), big, dtype=i64, device=dev)
+    rcnt = torch.zeros((NB * L, E), dtype=i64, device=dev)
+    rows = torch.arange(NB * L, device=dev)
+    while True:
+        going = going & (x < end)
+        full = going & (n >= capf)
+        why = torch.where(full, _CAP, why)
+        going = going & ~full
+        if not bool(going.any()):
+            break
+        ok, nbits, nout, _ = decode(chain, x)
+        why = torch.where(going & ~ok, _INVALID, why)
+        going = going & ok
+        rec = going & (r < E)
+        col = torch.where(rec, r, 0)
+        rbit[rows, col] = torch.where(rec, x, rbit[rows, col])
+        rcnt[rows, col] = torch.where(rec, n, rcnt[rows, col])
+        r = torch.where(rec, r + 1, r)
+        x = torch.where(going, x + nbits, x)
+        n = torch.where(going, n + nout, n)
+    ex, cnt, nrec = (t.reshape(NB, L) for t in (x, n, r))
+    stop = why.reshape(NB, L)
+    rbit3 = rbit.reshape(NB, L, E)
+    rcnt3 = rcnt.reshape(NB, L, E)
+
+    # Pass B: lane j - 1 into lane j, for j = 1 .. L - 1.
+    bkind = torch.full((NB, L), _NONE, dtype=i64, device=dev)
+    bx, bc, bi = (torch.zeros((NB, L), dtype=i64, device=dev)
+                  for _ in range(3))
+    if L > 1:
+        ch2 = torch.arange(NB, device=dev, dtype=i64).repeat_interleave(L - 1)
+        run = (stop[:, :-1] == _RANGE).reshape(-1)
+        zero = torch.zeros(NB * (L - 1), dtype=i64, device=dev)
+        kind, x, n, i = _carry(
+            decode, ch2, ex[:, :-1].reshape(-1), zero, zero,
+            rbit3[:, 1:].reshape(-1, E), nrec[:, 1:].reshape(-1),
+            torch.where(run, g[:, 2:].reshape(-1), -big),
+            cap.repeat_interleave(L - 1))
+        bkind[:, 1:] = torch.where(run, kind, _NONE).reshape(NB, L - 1)
+        bx[:, 1:], bc[:, 1:], bi[:, 1:] = (
+            t.reshape(NB, L - 1) for t in (x, n, i))
+
+    # The stitch, lane by lane, over the chains at once.
+    chains = torch.arange(NB, device=dev, dtype=i64)
+    T = torch.zeros((NB, L), dtype=i64, device=dev)
+    O = torch.zeros((NB, L), dtype=i64, device=dev)
+    own = torch.zeros((NB, L), dtype=torch.bool, device=dev)
+    T[:, 0] = lo
+    own[:, 0] = live_chain
+    x, o = ex[:, 0].clone(), cnt[:, 0].clone()
+    alive = live_chain & (stop[:, 0] == _RANGE) & (o < cap)
+    n_met = n_through = n_serial = 0
+    for j in range(1, L):
+        own[:, j] = alive
+        T[:, j] = x
+        O[:, j] = o
+        fast = alive & (x == ex[:, j - 1]) & (bkind[:, j] != _NONE)
+        slow = alive & ~fast
+        n_met += int((fast & (bkind[:, j] == _MET)).sum())
+        n_through += int((fast & (bkind[:, j] != _MET)).sum())
+        n_serial += int(slow.sum())
+        kind = torch.where(fast, bkind[:, j], -1)
+        n = torch.where(fast, o + bc[:, j], o)
+        i = torch.where(fast, bi[:, j], 0)
+        x = torch.where(fast, bx[:, j], x)
+        end_j = g[:, j + 1]
+        if bool(slow.any()):
+            kk, xx, nn, ii = _carry(decode, chains, x, n, i * 0, rbit3[:, j],
+                                    nrec[:, j],
+                                    torch.where(slow, end_j, -big), cap)
+            kind = torch.where(slow, kk, kind)
+            x, n, i = (torch.where(slow, a, b)
+                       for a, b in ((xx, x), (nn, n), (ii, i)))
+        met = alive & (kind == _MET)
+        got = rcnt3[:, j].gather(1, torch.clamp(i, max=E - 1)[:, None])[:, 0]
+        n = torch.where(met, n + cnt[:, j] - got, n)
+        x = torch.where(met, ex[:, j], x)
+        ends = met & (stop[:, j] == _INVALID)
+        more = met & (stop[:, j] == _CAP) & (n < cap)
+        if bool(more.any()):
+            kk, xx, nn, _ = _carry(decode, chains, x, n, nrec[:, j],
+                                   rbit3[:, j], nrec[:, j],
+                                   torch.where(more, end_j, -big), cap)
+            kind = torch.where(more, kk, kind)
+            x = torch.where(more, xx, x)
+            n = torch.where(more, nn, n)
+        alive = alive & ~ends & ~(kind == _ENDED)
+        o = torch.where(own[:, j], n, o)
+        alive = alive & (o < cap)
+
+    # Pass C, over [NB * L] lanes.
+    out = torch.zeros(NB * (BLOCK + 1), dtype=torch.int32, device=dev)
+    endc = g[:, 1:].clone()
+    endc[:, -1] = big
+    endc = endc.reshape(-1)
+    x = T.reshape(-1)
+    pos = (start[:, None] + O).reshape(-1)
+    olenf = olen.repeat_interleave(L)
+    going = own.reshape(-1).clone()
+    while True:
+        going = going & (x < endc) & (pos < olenf)
+        if not bool(going.any()):
+            break
+        ok, nbits, nout, mark = decode(chain, x)
+        going = going & ok
+        col = torch.where(going, chain * (BLOCK + 1) + pos,
+                          chain * (BLOCK + 1) + BLOCK)
+        out[col] = torch.where(going, mark, 0).to(torch.int32)
+        x = torch.where(going, x + nbits, x)
+        pos = torch.where(going, pos + nout, pos)
+    markers = out.reshape(NB, BLOCK + 1)[:, :BLOCK]
+    return markers, [n_met, n_through, n_serial]
+
+
+def symbol_walk_shared_bytes(SW: int, lanes: int = SPEC_LANES,
+                             records: int = SPEC_RECORDS) -> int:
+    """The symbol walk kernel's dynamic shared memory: a chain's tables,
+    its stream slice of SW words and the lanes' records."""
+    return 4 * (TAB_WIDTH + SW + 2 * lanes * records)
+
+
 def symbol_walk(stream_words, body_bit_local, out_len, tab, len_base,
-                len_extra, dist_base, dist_extra, start_pos):
+                len_extra, dist_base, dist_extra, start_pos,
+                walk_end_bit=None):
     """The symbol walk: the plain version for CPU tensors, the CUDA kernel
-    (csrc/symbol_walk.cu) for CUDA tensors. Arguments as
-    symbol_walk_plain; all int32 and contiguous."""
+    (csrc/symbol_walk.cu: a warp a chain decoding from guessed bit
+    offsets, stitched, then emitting) for CUDA tensors. Arguments as
+    symbol_walk_plain; all int32 and contiguous. walk_end_bit [NB] int32
+    (optional) is each chain's end bit, slice-local: a hint where to put
+    the guesses, on which the result does not depend; the plain version
+    ignores it. After a launch, symbol_walk.last_stats holds, on the
+    card, [lane boundaries met in pass B, carried through in pass B
+    without meeting (the slow route), re-walked in the stitch]."""
     args = (stream_words, body_bit_local, out_len, tab, len_base, len_extra,
             dist_base, dist_extra, start_pos)
     if stream_words.device.type == "cpu":
@@ -176,10 +441,12 @@ def symbol_walk(stream_words, body_bit_local, out_len, tab, len_base,
                          f"{stream_words.device}")
     NB, SW = stream_words.shape
     shapes = ((NB, SW), (NB,), (NB,), (NB, TAB_WIDTH), (29,), (29,), (30,),
-              (30,), (NB,))
+              (30,), (NB,), (NB,))
     names = ("stream_words", "body_bit_local", "out_len", "tab", "len_base",
-             "len_extra", "dist_base", "dist_extra", "start_pos")
-    for name, t, shape in zip(names, args, shapes):
+             "len_extra", "dist_base", "dist_extra", "start_pos",
+             "walk_end_bit")
+    checked = args if walk_end_bit is None else args + (walk_end_bit,)
+    for name, t, shape in zip(names, checked, shapes):
         if (t.device != stream_words.device or t.dtype != torch.int32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(
@@ -188,22 +455,37 @@ def symbol_walk(stream_words, body_bit_local, out_len, tab, len_base,
                 f"{tuple(t.shape)} on {t.device}")
     if SW < 3:
         raise ValueError(f"symbol walk: slices of {SW} words, need >= 3")
+    if not (1 <= SPEC_RECORDS <= 64 and 1 <= SPEC_LANES <= 256):
+        raise ValueError(f"symbol walk: SPEC_LANES={SPEC_LANES} and "
+                         f"SPEC_RECORDS={SPEC_RECORDS} outside [1, 256] "
+                         "and [1, 64]")
+    need = symbol_walk_shared_bytes(SW)
+    if need > SHARED_LIMIT:
+        raise ValueError(f"symbol walk: slices of {SW} words need {need} "
+                         f"bytes of shared memory; a CUDA block holds at "
+                         f"most {SHARED_LIMIT}")
     out = torch.zeros((NB, BLOCK), dtype=torch.int32,
                       device=stream_words.device)
+    stats = torch.zeros(3, dtype=torch.int32, device=stream_words.device)
     from tpz_torch.kernels import _build
 
     with torch.cuda.device(stream_words.device):
         rc = _build.lib().tpz_symbol_walk(
-            *(t.data_ptr() for t in args), out.data_ptr(), NB, SW, TAB_WIDTH,
-            C.INFLATE_LIT_TW, torch.cuda.current_stream().cuda_stream)
+            *(t.data_ptr() for t in args),
+            None if walk_end_bit is None else walk_end_bit.data_ptr(),
+            out.data_ptr(), stats.data_ptr(), NB, SW, TAB_WIDTH,
+            C.INFLATE_LIT_TW, SPEC_LANES, SPEC_RECORDS,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"symbol walk kernel launch failed: cudaError {rc}")
     symbol_walk.launches += 1
+    symbol_walk.last_stats = stats
     return out
 
 
 symbol_walk.launches = 0
 symbol_walk.kernels = ("symbol_walk_kernel",)
+symbol_walk.last_stats = None
 
 
 # ------------------------------------------------------- device stages
@@ -260,7 +542,7 @@ def _decode_fused_fn(t: dict, stage_hook=_nohook) -> torch.Tensor:
     """Indexed route: entries are encoder blocks, every one but a stream's
     last exactly BLOCK long, so the [NB, BLOCK] marker space is the dense
     output space. Returns [NB * BLOCK] uint8."""
-    markers = symbol_walk(*_walk_args(t))
+    markers = symbol_walk(*_walk_args(t), walk_end_bit=t["walk_end_bit"])
     stage_hook("walk")
     markers = _materialize_fn(markers, *_materialize_args(t))
     stage_hook("materialize")
@@ -291,7 +573,7 @@ def _decode_segmented_fn(t: dict, stage_hook=_nohook) -> torch.Tensor:
     resolve. The reference's power-of-two bucketing of NB and of the dense
     length only bounded XLA recompiles and is not kept. Returns [total]
     uint8."""
-    markers = symbol_walk(*_walk_args(t))
+    markers = symbol_walk(*_walk_args(t), walk_end_bit=t["walk_end_bit"])
     stage_hook("walk")
     markers = _materialize_fn(markers, *_materialize_args(t),
                               carry=t["carry"])
@@ -319,7 +601,7 @@ def _layout(entries) -> dict:
     slices = np.zeros((NB, SLICE_BYTES), np.uint8)
     L = {k: np.zeros(NB, np.int32) for k in (
         "body_bit_local", "c0_pos_l", "c0_len", "c1_pos_l", "walk_out_len",
-        "out_len", "btype", "start_pos", "carry")}
+        "out_len", "btype", "start_pos", "carry", "walk_end_bit")}
     tab = np.zeros((NB, TAB_WIDTH), np.int32)
     b0 = 0
     for stream, start_bits, end_bits, scan, out_lens, c_len, c_dist in entries:
@@ -333,6 +615,8 @@ def _layout(entries) -> dict:
             slices[b0 + b, :take] = sb[s0:s0 + take]
         sl = slice(b0, b0 + nb)
         L["body_bit_local"][sl] = scan["body_bit"] - 8 * slice_start
+        L["walk_end_bit"][sl] = (np.asarray(end_bits, np.int64)
+                                 - 8 * slice_start)
         L["c0_pos_l"][sl] = scan["c0_pos"] - slice_start
         L["c0_len"][sl] = scan["c0_len"]
         L["c1_pos_l"][sl] = scan["c1_pos"] - slice_start

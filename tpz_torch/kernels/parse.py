@@ -21,6 +21,9 @@ candidate, then optionally the second candidate).
 - `parse_extend_v3` is the wrapper the pipeline calls: a CPU tensor runs
   the plain version, a CUDA tensor launches the hand-written kernel in
   `tpz_torch/csrc/parse_walk.cu`.
+- `parse_extend_v3_tokens_plain` is that kernel's torch twin, for the
+  tests: the token at every position (`v3_tokens`), then the chunk walks
+  (`chunk_walks`).
 
 `n_extend` is the oracle's parameter of the same name (cpp/lzss.h): with
 2, a saturated second candidate is extended when the first falls short of
@@ -287,12 +290,200 @@ def parse_extend_v3z(pk1, pk2, cap_at, words, block_len, window,
     return tuple(torch.cat(x, dim=0) for x in zip(*parts))
 
 
+def _extend_v3(wflat, base, q, k, j, cap, window, M):
+    """Candidate j's match at q from k equal bytes up to cap, as the serial
+    walk's EXT steps compute it (4-byte compares), for many positions at
+    once: all arguments are 1-D int64 tensors but window and M."""
+    live = torch.ones_like(k, dtype=torch.bool)
+    ln = torch.zeros_like(k)
+    while bool(live.any()):
+        x = (wflat[base + torch.clamp(q + window + k, max=M - 1)]
+             ^ wflat[base + torch.clamp(j + k, 0, M - 1)])
+        done = live & ((x != 0) | (k + 4 >= cap))
+        ln = torch.where(done, torch.minimum(
+            k + torch.where(x == 0, 4, _lzbytes(x)), cap), ln)
+        live = live & ~done
+        k = torch.where(live, k + 4, k)
+    return ln
+
+
+def _full_v3(pk2, wflat, M, b, q, qc, apk, blen, window, max_match,
+             screen_bytes, too_far, restart, n_extend):
+    """(lnf, distf) of the serial walk's TOK, EXT and FIN at flagged
+    positions q (raw screen words apk; pk2 read at qc) of blocks b,
+    before the lazy rule; 1-D int64 tensors."""
+    ss1 = (apk & 63) - 1
+    jj1 = (apk >> 6) - 1
+    cap = torch.minimum(torch.clamp(blen - q, max=max_match),
+                        restart - q % restart)
+    scap = torch.clamp(cap, max=screen_bytes)
+    base = b * M
+    lnf = ss1.clone()
+    jf = jj1.clone()
+    sat = torch.nonzero((ss1 >= scap) & (jj1 >= 0), as_tuple=True)[0]
+    if sat.numel():
+        ln1 = _extend_v3(wflat, base[sat], q[sat], ss1[sat], jj1[sat],
+                         cap[sat], window, M)
+        ln, j = ln1, jj1[sat]
+        if n_extend >= 2:
+            bw = pk2[b[sat], qc[sat]].to(torch.int64)
+            s2v = (bw & 63) - 1
+            j2v = (bw >> 6) - 1
+            two = torch.nonzero((j2v >= 0) & (s2v >= scap[sat])
+                                & (ln1 < cap[sat]), as_tuple=True)[0]
+            if two.numel():
+                t = sat[two]
+                ln2 = _extend_v3(wflat, base[t], q[t], s2v[two], j2v[two],
+                                 cap[t], window, M)
+                ln = ln.clone()
+                j = j.clone()
+                ln[two] = torch.maximum(ln2, ln1[two])
+                j[two] = torch.where(ln2 > ln1[two], j2v[two], jj1[t])
+        lnf[sat] = ln
+        jf[sat] = j
+    lnf = torch.where((jj1 < 0) | (ss1 < 3), 0, lnf)
+    distf = q + window - jf
+    lnf = torch.where((lnf == 3) & (distf > too_far), 0, lnf)
+    return lnf, torch.where(lnf > 0, distf, 0)
+
+
+def v3_tokens(pk1, pk2, cap_at, words, block_len, window, max_match=258,
+              screen_bytes=16, too_far=4096, lazy=False, max_lazy=258,
+              restart=0, n_extend=2):
+    """The token the v3 walk emits at every position p < block_len, as
+    (mark, step) [NB, N] int32: the mark the serial walk stores at p if it
+    visits p, and the step max(lnE, 1) to its next token (1 at and past
+    block_len, which no walk visits). The kernel's phase (a) in torch:
+    a token is a function of p alone (the mark at p, the extension at p,
+    and the lazy probe's length at p + 1; csrc/parse_walk.cu)."""
+    NB, N = pk1.shape
+    M = words.shape[1]
+    dev = pk1.device
+    if not restart or restart >= N:
+        restart = N
+    w1 = _v3_marks(pk1, pk2, cap_at, block_len, window, max_match,
+                   screen_bytes, too_far, lazy, max_lazy)
+    apk = w1 & (RAW - 1)
+    mark = apk.clone()
+    step = torch.clamp((apk & 1023) - 1, min=1)
+    pos = torch.arange(N, device=dev, dtype=torch.int32)
+    live = pos[None, :] < block_len[:, None]
+    b, p = torch.nonzero(((w1 & RAW) != 0) & live, as_tuple=True)
+    if b.numel():
+        wflat = words.reshape(-1).to(torch.int64)
+        blen = block_len.to(torch.int64)[b]
+        w1l, pk2l = w1.to(torch.int64), pk2.to(torch.int64)
+        args = (window, max_match, screen_bytes, too_far, restart, n_extend)
+        lnE, dE = _full_v3(pk2l, wflat, M, b, p, p, apk[b, p].to(torch.int64),
+                           blen, *args)
+        if lazy:
+            pr = torch.nonzero((lnE > 0) & (lnE < max_lazy) & (p + 1 < blen),
+                               as_tuple=True)[0]
+            q = p[pr] + 1
+            qc = torch.clamp(q, max=N - 1)
+            a1 = w1l[b[pr], qc]
+            apk1 = a1 & (RAW - 1)
+            aln = apk1 & 1023
+            ln1 = torch.where(aln == 1, (apk1 >> 10) & 511, aln - 1)
+            raw1 = torch.nonzero((a1 & RAW) != 0, as_tuple=True)[0]
+            if raw1.numel():
+                r = pr[raw1]
+                ln1[raw1] = _full_v3(pk2l, wflat, M, b[r], q[raw1],
+                                     qc[raw1], apk1[raw1], blen[r], *args)[0]
+            demote = ln1 > lnE[pr]
+            lnE[pr] = torch.where(demote, 0, lnE[pr])
+            dE[pr] = torch.where(demote, 0, dE[pr])
+        mark[b, p] = ((dE << 10) | (lnE + 1)).to(torch.int32)
+        step[b, p] = torch.clamp(lnE, min=1).to(torch.int32)
+    return mark, torch.where(live, step, 1)
+
+
+def chunk_walks(step, n, chunks=32):
+    """The visited positions of walks p -> p + step[w, p] from 0 while
+    p < n[w] ([W, R] int32 steps >= 1, n [W] int), as [W, R] bool, found
+    as the kernels find them (csrc/chunk_walk.cuh): `chunks` walks a row
+    from guessed starts, chunks of whole 32-position words, then put in
+    order chunk by chunk from the true walk of chunk 0."""
+    W, R = step.shape
+    dev = step.device
+    n = n.to(torch.int64)
+    st = step.to(torch.int64)
+    rows = torch.arange(W, device=dev)
+    C = (n + 32 * chunks - 1) // (32 * chunks) * 32
+    vis = torch.zeros((W, R + 1), dtype=torch.bool, device=dev)
+
+    def at(x, q):
+        return x[rows, torch.clamp(q, 0, R - 1)]
+
+    def paint(q, end):
+        """Sets the bits of the walk from q below end; returns its exit."""
+        while True:
+            go = q < end
+            if not bool(go.any()):
+                return q
+            vis[rows, torch.where(go, q, R)] = True
+            q = torch.where(go, q + at(st, q), q)
+
+    exits = []
+    for k in range(chunks):  # the lane walks
+        c0 = k * C
+        c1 = torch.minimum(c0 + C, n)
+        exits.append(paint(torch.where(c0 < n, c0, c1), c1))
+    pos = torch.arange(R + 1, device=dev)[None, :]
+    e = exits[0]
+    for k in range(1, chunks):  # lane 0 puts them in order
+        c = k * C
+        end = torch.minimum(c + C, n)
+        m = e.clone()
+        while True:
+            go = (m < end) & ~vis[rows, torch.clamp(m, max=R)]
+            if not bool(go.any()):
+                break
+            m = torch.where(go, m + at(st, m), m)
+        met = m < end
+        lim = torch.where(met, m, end)
+        vis &= ~((pos >= c[:, None]) & (pos < lim[:, None]))
+        paint(e, lim)
+        e = torch.where(c < n, torch.where(met, exits[k], m), e)
+    return vis[:, :R]
+
+
+def parse_extend_v3_tokens_plain(pk1, pk2, cap_at, words, block_len, window,
+                                 max_match=258, screen_bytes=16,
+                                 too_far=4096, lazy=False, max_lazy=258,
+                                 restart=0, n_extend=2, chunks=32):
+    """The kernel's torch twin: the token at every position (v3_tokens),
+    then each restart sub-walk's chunk walks (chunk_walks), then the
+    outputs. Equals parse_extend_v3z for every `chunks`."""
+    NB, N = pk1.shape
+    if not restart or restart >= N:
+        restart = N
+    nsub = N // restart
+    mark, step = v3_tokens(pk1, pk2, cap_at, words, block_len, window,
+                           max_match, screen_bytes, too_far, lazy, max_lazy,
+                           restart, n_extend)
+    r0 = torch.arange(nsub, device=pk1.device) * restart
+    n = torch.clamp(block_len.to(torch.int64)[:, None] - r0[None, :], 0,
+                    restart).reshape(-1)
+    vis = chunk_walks(step.reshape(NB * nsub, restart), n, chunks)
+    return _outputs(torch.where(vis.reshape(NB, N), mark, 0))
+
+
+def parse_v3_shared_bytes(restart: int) -> int:
+    """The v3 walk kernel's shared memory for sub-walks of `restart`
+    positions: a 16-bit step a position, the visited bits and 32 chunk
+    exits."""
+    return 2 * restart + 4 * ((restart + 31) // 32) + 4 * 32
+
+
 def parse_extend_v3(pk1, pk2, cap_at, words, block_len, window,
                     max_match=258, screen_bytes=16, too_far=4096,
                     lazy=False, max_lazy=258, restart=0, n_extend=2,
                     group=16):
     """The parse walk: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors (`group` applies to the plain version only)."""
+    (csrc/parse_walk.cu: a CUDA block a restart sub-walk, tokens at every
+    position in parallel, then the walk through shared memory) for CUDA
+    tensors (`group` applies to the plain version only)."""
     if pk1.device.type == "cpu":
         return parse_extend_v3z(pk1, pk2, cap_at, words, block_len, window,
                                 max_match, screen_bytes, too_far, lazy,
@@ -316,21 +507,27 @@ def parse_extend_v3(pk1, pk2, cap_at, words, block_len, window,
     if N % restart or M < N + window + max_match:
         raise ValueError(f"parse walk: bad geometry N={N} M={M} "
                          f"restart={restart} window={window}")
-    w1 = _v3_marks(pk1, pk2, cap_at, block_len, window, max_match,
-                   screen_bytes, too_far, lazy, max_lazy)
-    out = torch.zeros((NB, N), dtype=torch.int32, device=pk1.device)
+    need = parse_v3_shared_bytes(restart)
+    if need > SHARED_LIMIT:
+        raise ValueError(
+            f"parse walk: restart={restart} needs {need} bytes of shared "
+            f"memory; a CUDA block holds at most {SHARED_LIMIT}")
+    visited = torch.empty((NB, N), dtype=torch.int32, device=pk1.device)
+    mlen = torch.empty_like(visited)
+    mdist = torch.empty_like(visited)
     from tpz_torch.kernels import _build
 
     with torch.cuda.device(pk1.device):
         rc = _build.lib().tpz_parse_walk_v3(
-            w1.data_ptr(), pk2.data_ptr(), words.data_ptr(),
-            block_len.data_ptr(), out.data_ptr(), NB, N, M, window,
-            restart, max_match, screen_bytes, too_far, int(lazy), max_lazy,
-            n_extend, torch.cuda.current_stream().cuda_stream)
+            pk1.data_ptr(), pk2.data_ptr(), cap_at.data_ptr(),
+            words.data_ptr(), block_len.data_ptr(), visited.data_ptr(),
+            mlen.data_ptr(), mdist.data_ptr(), NB, N, M, window, restart,
+            max_match, screen_bytes, too_far, int(lazy), max_lazy, n_extend,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"parse walk kernel launch failed: cudaError {rc}")
     parse_extend_v3.launches += 1
-    return _outputs(out)
+    return visited, mlen, mdist
 
 
 parse_extend_v3.launches = 0
