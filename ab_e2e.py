@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """A parent checkout against this one, in turns on one NVIDIA GPU: the
-end-to-end metrics of the gzip main path, through the v3 parse walk (#1)
-and the inflate symbol walk (#2), and those two wrappers at the headline
-shapes.
+end-to-end metrics of the lh5 and bzip2 decode paths, through the LZHUF
+token walk (#5) and the inverse BWT (#7), and those two wrappers at the
+headline shapes.
 
     git archive <parent commit> | tar -x -C build/parent
     python3 ab_e2e.py build/parent [--pairs 3]
@@ -10,13 +10,15 @@ shapes.
 Each run is a process of its own on one checkout (its kernels and oracle
 build into that checkout's build/), in the order parent, change, change,
 parent, ... over the same 2 x 16 MiB of corpus.mixed (seeds 1000, 1001,
-as chip_smoke.py). A run prints one JSON line: gzip encode (level 6) and
-gzip decode MB/s (median of 3 warm calls, as chip_smoke.py phases 5 and
-8, all on the same buffers), `parse_extend_v3` on the headline's parse
-inputs and `symbol_walk` on the segmented layout of the first buffer's
-gzip body (the headline decode dispatch's own input; with the layout's
-end-bit hint where the checkout has one), both by CUDA events, mean of 5
-warm calls. The last line gives each metric's runs by side. Needs both
+as chip_smoke.py) and the same oracle bzip2 level-9 streams of it. A run
+prints one JSON line: lh5 decode MB/s (of the blobs the run's own
+api.compress_many writes, which equal the oracle's) and bzip2 decode MB/s
+(median of 3 warm calls, as chip_smoke.py phases 11 and 15), `lzhuf_walk`
+on the segmented layout of the first buffer's lh5 body (the headline
+decode dispatch's own input; with the layout's end-bit hint where the
+checkout has one) and `ibwt` on the headline bzip2 batch's last columns
+at the checkout's own IBWT_SEG, both by CUDA events, mean of 5 warm
+calls. The last line gives each metric's runs by side. Needs both
 checkouts' chip_smoke.py, whose functions make the inputs.
 """
 
@@ -30,46 +32,51 @@ import subprocess
 import sys
 import time
 
-METRICS = ("gzip_encode_mb_s", "gzip_decode_mb_s", "parse_v3_ms",
-           "symbol_walk_ms")
+METRICS = ("lh5_decode_mb_s", "bzip2_decode_mb_s", "lzhuf_walk_ms",
+           "ibwt_ms")
 
 
 def run_side(data_path: str) -> dict:
     """The metrics of the checkout on sys.path[0] (its chip_smoke.py and
-    tpz_torch), on the buffers saved at data_path."""
+    tpz_torch), on the buffers and bzip2 streams saved at data_path."""
     import numpy as np
     import torch
     import chip_smoke as cs
-    from tpz_torch import api
-    from tpz_torch.codecs import gzip_codec
-    from tpz_torch.codecs.deflate import DeflateConfig
-    from tpz_torch.kernels import inflate_pipeline as ip
-    from tpz_torch.kernels import parse
+    from tpz_torch import api, oracle
+    from tpz_torch.kernels import bzip2_walk as bw
+    from tpz_torch.kernels import ibwt_walk as iw
+    from tpz_torch.kernels import lzhuf_walk as lw
 
-    bufs = [a.tobytes() for a in np.load(data_path).values()]
+    saved = np.load(data_path)
+    bufs = [saved[f"buf{i}"].tobytes() for i in range(cs.HEADLINE_BUFFERS)]
+    bz = [saved[f"bz{i}"].tobytes() for i in range(cs.HEADLINE_BUFFERS)]
     total = sum(map(len, bufs))
-    gz = api.compress_many(bufs, "gzip", 6, device="cuda")
+    lz = api.compress_many(bufs, cs.LZHUF_METHOD, device="cuda")
     out = {}
     for name, fn in (
-            ("gzip_encode_mb_s",
-             lambda: api.compress_many(bufs, "gzip", 6, device="cuda")),
-            ("gzip_decode_mb_s",
-             lambda: api.decompress_many(gz, "gzip", device="cuda"))):
+            ("lh5_decode_mb_s",
+             lambda: api.decompress_many(lz, cs.LZHUF_METHOD,
+                                         device="cuda")),
+            ("bzip2_decode_mb_s",
+             lambda: api.decompress_many(bz, "bzip2", device="cuda"))):
         fn()
         median, _ = cs.warm_median(lambda _: fn(), range(3))
         out[name] = round(total / median / 1e6, 2)
-    cfg = DeflateConfig(level=6)
-    inputs = cs.parse_inputs(bufs, cfg, "cuda")
-    args = cs._parse_args(cfg)
-    run = lambda: parse.parse_extend_v3(*inputs, *args)
-    run()
-    _, out["parse_v3_ms"] = cs.timed(run, 5)
-    del inputs
-    t = cs.segmented_inputs(gz[0][len(gzip_codec.header_bytes(6)):-8])
+    bits = cs._dict_bits(cs.LZHUF_METHOD)
+    body = oracle.lzhuf_encode(bufs[0], bits, 16)
+    t = cs.lzhuf_walk_inputs(body, len(bufs[0]), cs.LZHUF_METHOD)
     kw = {"walk_end_bit": t["walk_end_bit"]} if "walk_end_bit" in t else {}
-    run = lambda: ip.symbol_walk(*ip._walk_args(t), **kw)
+    run = lambda: lw.lzhuf_walk(*lw._walk_args(t), **kw)
     run()
-    _, out["symbol_walk_ms"] = cs.timed(run, 5)
+    _, out["lzhuf_walk_ms"] = cs.timed(run, 5)
+    del t
+    t, N, S = cs.bzip2_layout(bz)
+    recs, meta = bw.bzip2_walk(*(t[k] for k in bw.WALK_ARGS), S)
+    args = cs.ibwt_inputs(t, recs, meta, N)
+    del recs, t
+    run = lambda: iw.ibwt(*args, iw.IBWT_SEG)
+    run()
+    _, out["ibwt_ms"] = cs.timed(run, 5)
     torch.cuda.synchronize()
     return out
 
@@ -101,7 +108,12 @@ def main() -> int:
                            for i in range(cs.HEADLINE_BUFFERS)])
     data = os.path.join(here, "build", "ab_e2e_data.npz")
     os.makedirs(os.path.dirname(data), exist_ok=True)
-    np.savez(data, *[np.frombuffer(b, np.uint8) for b in bufs])
+    from tpz_torch import oracle
+
+    np.savez(data, **{f"buf{i}": np.frombuffer(b, np.uint8)
+                      for i, b in enumerate(bufs)},
+             **{f"bz{i}": np.frombuffer(oracle.bzip2_encode(b, 9), np.uint8)
+                for i, b in enumerate(bufs)})
     roots = {"parent": os.path.abspath(args.parent), "change": here}
     runs = {m: {"parent": [], "change": []} for m in METRICS}
     order = [side for i in range(args.pairs)

@@ -64,7 +64,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
               layout of 1 MiB lh5 and lh7 streams and of a 16 MiB lh5
               stream of the headline batch (the plain token walk on host
               copies of its inputs); each kernel timed beside its plain
-              version at the headline shape
+              version at the headline shape (the token walk with its
+              shared bytes and blocks resident per SM); the token walk
+              also timed there at 32 lanes of 32 phase walks, 64 of 16
+              and the default (each logging its lane boundaries resolved
+              by a phase walk and by the slow route, and the largest
+              entry offset past a guess; lzhuf_lanes.py times more), and
+              with one phase walk a lane (SPEC_PHASES = 1), which sends
+              most lane boundaries the slow route (the phase fails
+              unless it does); every one exact
  10. lzhuf-slice
               api.compress_many on the headline batch at lh5, one 16 MiB
               buffer of it at lh7 and 1 MiB at lh4 and lh6, device "cuda":
@@ -103,7 +111,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
               small blocks, a periodic block and the headline batch's last
               columns (the 2 x 16 MiB corpus.mixed batch, oracle bzip2
               level 9), all at the decode's splitter stride; both kernels
-              timed at the headline shape
+              timed at the headline shape, the iBWT also at the candidate
+              strides around the decode's (IBWT_STRIDES), which must give
+              the same bytes and flags
  14. bzip2-slice
               api.decompress_many on the headline blobs, api.decompress on
               a 16 MiB stdlib bz2 level 9 stream and on a two-stream
@@ -116,9 +126,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
               (MB/s of plaintext), a per-stage split from CUDA events, and
               one call under torch.profiler (as phase 12: device busy
               time, idle share, the time of each of the walk's kernels
-              (records, labels, lists, bytes) and the iBWT's, and the
-              trace must hold every kernel of each wrapper the call
-              launched)
+              (records, labels, lists, bytes) and the iBWT's (walk,
+              stitch, place), and the trace must hold every kernel of
+              each wrapper the call launched)
  16. bzip2-encode-kernels
               the MTF-encode kernel against its plain version (exact
               ranks) on the symbols and the selectors (alpha 6) of small
@@ -215,8 +225,8 @@ OPS_V3_EXTEND = 12         # ... one 4-byte extension compare
 OPS_COPY_POSITION = 16     # #3: a position's state and its check
                            # (counted from the serial copy machine)
 OPS_COPY_MATCHED = 12      # ... the copy of one matched position
-OPS_IBWT_STEP = 17         # ibwt_walk.cu: a node in pass 1 and in pass 2
-OPS_IBWT_CHAIN = 45        # ... a chain's set-up in both passes and stitch
+OPS_IBWT_STEP = 17         # #7: a node's step (its load, the successor
+                           # test, its byte out; the function's own work)
 OPS_REACH_STEP = 8         # reach_walk.cu: a visited position
 OPS_V3W_TOKEN = 36         # parse_v3w_walk.cu: a token through TOK and FIN
 OPS_V3W_EXTEND = 12        # ... one 4-byte extension compare
@@ -232,6 +242,10 @@ OPS_MTF_ENCODE = 4         # MTF: a symbol's load, rank lookup, write at
                            # the front and store of its rank
 OPS_MTF_MOVE = 1           # both: each list entry moved
 BZIP2_LEVEL = 9
+# The iBWT's candidate splitter strides around the decode's own
+# (ibwt_walk.IBWT_SEG), timed at the headline; ibwt_stride.py times a
+# wider range.
+IBWT_STRIDES = (16, 64, 128)
 # The MTF kernels' second segment length on the small inputs: short enough
 # that segment cuts fall inside runs and mid-block.
 MTF_SEG_CHECK = 32
@@ -997,23 +1011,72 @@ def lzhuf_walk_inputs(body, n, method):
     return ip._to_device(lw._layout([(body, idx, spans, rows)]), "cuda")
 
 
-def compare_lzhuf_walk(t):
+def compare_lzhuf_walk(t, want=None):
     """LZHUF token-walk kernel vs plain on the same CUDA tensors (the plain
-    walk on host copies of them): (markers, max abs difference, kernel ms,
-    plain ms), each timed on its first call. Raises unless the markers are
-    equal."""
+    walk on host copies of them, unless its markers `want` are given):
+    (markers, max abs difference, kernel ms, plain ms, [lane boundaries
+    resolved by a phase walk, walked by the slow route, the largest entry
+    offset past a guess]), each timed on its first call. The kernel gets
+    the layout's end-bit hint, as the decode does. Raises unless the
+    markers are equal."""
     from tpz_torch.kernels import lzhuf_walk as lw
 
     args = lw._walk_args(t)
     before = lw.lzhuf_walk.launches
-    got, ms = timed(lambda: lw.lzhuf_walk(*args))
+    got, ms = timed(lambda: lw.lzhuf_walk(
+        *args, walk_end_bit=t["walk_end_bit"]))
     if lw.lzhuf_walk.launches != before + 1:
         raise RuntimeError("lzhuf walk wrapper did not launch its kernel")
-    want, plain_ms = timed(lambda: on_host(lw.lzhuf_walk_plain, *args))
+    stats = lw.lzhuf_walk.last_stats.tolist()
+    plain_ms = None
+    if want is None:
+        want, plain_ms = timed(lambda: on_host(lw.lzhuf_walk_plain, *args))
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if err:
         raise RuntimeError(f"lzhuf-walk kernel disagrees with plain: {err}")
-    return got, err, ms, plain_ms
+    return got, err, ms, plain_ms, stats
+
+
+def phase_lzhuf_walk_spec(t, want):
+    """The token walk where its lane design can break, on the headline
+    layout `t` (plain markers `want`): timed at 32 lanes of 32 phase
+    walks, 64 of 16 and the default, each logging its lane boundaries
+    resolved by a phase walk and by the slow route; then with one phase
+    walk a lane, so that most lane boundaries take the slow route (the
+    phase fails unless they do). Returns the largest difference, which
+    must be 0."""
+    from tpz_torch.kernels import lzhuf_walk as lw
+
+    saved = lw.SPEC_LANES, lw.SPEC_PHASES
+    args, hint = lw._walk_args(t), t["walk_end_bit"]
+    err = 0
+    by_lanes, stats_by_lanes = {}, {}
+    try:
+        for lw.SPEC_LANES, lw.SPEC_PHASES in ((32, 32), (64, 16), saved):
+            key = f"{lw.SPEC_LANES}x{lw.SPEC_PHASES}"
+            got, by_lanes[key] = timed(
+                lambda: lw.lzhuf_walk(*args, walk_end_bit=hint), 5)
+            stats_by_lanes[key] = lw.lzhuf_walk.last_stats.tolist()
+            err = max(err, int((got.long() - want.long()).abs().max()))
+        lw.SPEC_LANES, lw.SPEC_PHASES = saved[0], 1
+        _, e, ms, _, stats = compare_lzhuf_walk(t, want)
+        err = max(err, e)
+    finally:
+        lw.SPEC_LANES, lw.SPEC_PHASES = saved
+    if err:
+        raise RuntimeError(f"lzhuf-walk kernel disagrees with plain: {err}")
+    log("lzhuf-kernels", input=f"16MiB-{LZHUF_METHOD}",
+        walk_ms_by_lanes_x_phases=json.dumps(
+            {k: round(v, 4) for k, v in by_lanes.items()}),
+        walk_direct_slow_far_by_lanes_x_phases=json.dumps(stats_by_lanes))
+    log("lzhuf-kernels", input=f"16MiB-{LZHUF_METHOD}-one-phase",
+        walk_max_abs_err=e, walk_direct_slow_far=stats,
+        walk_first_call_ms=f"{ms:.3f}")
+    if stats[1] <= stats[0]:
+        raise RuntimeError(f"one phase walk a lane: the slow route took "
+                           f"only {stats[1]} of the lane boundaries: "
+                           f"{stats}")
+    return err
 
 
 def phase_lzhuf_kernels(small, headline):
@@ -1039,13 +1102,13 @@ def phase_lzhuf_kernels(small, headline):
         t = lzhuf_walk_inputs(oracle.lzhuf_encode(small, _dict_bits(method),
                                                   lp.MAX_CHAIN),
                               len(small), method)
-        markers, e, _, _ = compare_lzhuf_walk(t)
+        markers, e, _, _, stats = compare_lzhuf_walk(t)
         err_w = max(err_w, e)
         err_r = max(err_r, compare_resolve(lw._dense_markers(markers, t), 1))
         log("lzhuf-kernels", input=f"1MiB-mixed-{method}",
             blocks=inputs[0].shape[0], segments=t["out_len"].shape[0],
             parse_max_abs_err=err_p, walk_max_abs_err=err_w,
-            resolve_max_abs_err=err_r)
+            resolve_max_abs_err=err_r, walk_direct_slow_far=stats)
 
     inputs, window = lzhuf_parse_inputs(headline, LZHUF_METHOD)
     got, e, cold_ms, _ = compare_parse_v1(inputs, window)
@@ -1070,11 +1133,14 @@ def phase_lzhuf_kernels(small, headline):
     t = lzhuf_walk_inputs(oracle.lzhuf_encode(data, _dict_bits(LZHUF_METHOD),
                                               lp.MAX_CHAIN),
                           len(data), LZHUF_METHOD)
-    markers, e, cold_ms, walk_plain_ms = compare_lzhuf_walk(t)
+    markers, e, cold_ms, walk_plain_ms, stats = compare_lzhuf_walk(t)
     err_w = max(err_w, e)
     args = lw._walk_args(t)
-    _, walk_ms = timed(lambda: lw.lzhuf_walk(*args), 5)
+    _, walk_ms = timed(lambda: lw.lzhuf_walk(
+        *args, walk_end_bit=t["walk_end_bit"]), 5)
     err_r = max(err_r, compare_resolve(lw._dense_markers(markers, t), 1))
+    # The function's own work: the serial walk's trips, whatever the
+    # design (a lane's speculative tokens do not count).
     walk_bound = bound([*args, markers], walk_ops(
         markers, args[0].numel() + args[4].numel(), OPS_LZHUF_LITERAL,
         OPS_LZHUF_MATCH))
@@ -1083,7 +1149,12 @@ def phase_lzhuf_kernels(small, headline):
         resolve_max_abs_err=err_r, walk_ms=f"{walk_ms:.3f}",
         walk_first_call_ms=f"{cold_ms:.3f}",
         walk_plain_ms=f"{walk_plain_ms:.3f}",
-        walk_bound_ms=f"{walk_bound['bound_ms']:.4f}")
+        walk_bound_ms=f"{walk_bound['bound_ms']:.4f}",
+        walk_lanes_x_phases=f"{lw.SPEC_LANES}x{lw.SPEC_PHASES}",
+        walk_shared_bytes=lw.shared_bytes(args[0].shape[1]),
+        walk_blocks_per_sm=lw.occupancy(args[0].shape[1]),
+        walk_direct_slow_far=stats)
+    err_w = max(err_w, phase_lzhuf_walk_spec(t, markers))
     return ({"max_abs_err": err_p, "ms": parse_ms,
              "plain_ms": parse_plain_ms, **parse_bound},
             {"max_abs_err": err_w, "ms": walk_ms, "plain_ms": walk_plain_ms,
@@ -1236,19 +1307,29 @@ def profile_call(fn, label: str, counters: dict,
     busy time, idle share, the device time of each CUDA kernel of the
     wrappers in `counters` (name -> wrapper) and the top device ops.
     Raises if the trace holds no device time, or lacks a kernel of a
-    wrapper that the call launched."""
-    from torch.profiler import ProfilerActivity, profile
+    wrapper that the call launched. The session first runs fn once as
+    the profiler's warm-up step (tracing on, its records dropped), so
+    that the traced call is warm inside the session too. A full run once
+    lost a kernel the call launched (phase 15's bzip2_records_kernel)
+    from a trace taken without that step; no run has shown whether the
+    step prevents it (PERF.md §7)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for c in counters.values():
-        c.launches = 0
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for c in counters.values():
+            c.launches = 0
         with torch.profiler.record_function(label):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     events = trace_events(prof)
     mark = next(e for e in events if e.get("name") == label
                 and e.get("cat") == "user_annotation")
@@ -1476,21 +1557,32 @@ def phase_bzip2_kernels(small, long_blobs, blobs):
     args = ibwt_inputs(t, recs, meta, N)
     del recs, t
     seg = iw.IBWT_SEG
-    _, flag, e, cold_ms, ibwt_plain_ms = compare_ibwt(args, seg)
+    out, flag, e, cold_ms, ibwt_plain_ms = compare_ibwt(args, seg)
     err_i = max(err_i, e)
     if int(flag.sum()):
         raise RuntimeError(f"headline blocks flagged: {flag.tolist()}")
     _, ibwt_ms = timed(lambda: iw.ibwt(*args, seg), 5)
     n = int(args[2].long().sum())
-    chains = int(flag.numel()) * iw.chains_per_block(N, seg)
-    ibwt_bound = bound_bytes_ops(
-        n * 5 + chains * 12 + 8 * flag.numel(),
-        n * OPS_IBWT_STEP + chains * OPS_IBWT_CHAIN)
+    # The function's own work: w read once, a byte out and a step a node,
+    # and the start, length and flag of each block; the design's chains,
+    # staging and stitch do not count.
+    ibwt_bound = bound_bytes_ops(n * 5 + 8 * flag.numel(),
+                                 n * OPS_IBWT_STEP)
     log("bzip2-kernels", input="headline-2x16MiB-l9", nodes=n,
         seg=seg, ibwt_max_abs_err=err_i,
         ibwt_first_call_ms=f"{cold_ms:.3f}",
         ibwt_plain_ms=f"{ibwt_plain_ms:.3f}", ibwt_ms=f"{ibwt_ms:.3f}",
-        ibwt_bound_ms=f"{ibwt_bound['bound_ms']:.4f}")
+        ibwt_bound_ms=f"{ibwt_bound['bound_ms']:.4f}",
+        ibwt_walk_resident=iw.walk_resident())
+    # The candidate strides: the same bytes and flags, each timed.
+    by_seg = {}
+    for other in IBWT_STRIDES:
+        got, ms = timed(lambda: iw.ibwt(*args, other), 5)
+        if not (torch.equal(got[0], out) and torch.equal(got[1], flag)):
+            raise RuntimeError(f"ibwt at seg {other} differs from seg {seg}")
+        by_seg[other] = round(ms, 4)
+    log("bzip2-kernels", input="headline-2x16MiB-l9",
+        ibwt_ms_by_seg=json.dumps(by_seg))
     return ({"max_abs_err": err_w, "ms": walk_ms, "plain_ms": walk_plain_ms,
              **walk_bound},
             {"max_abs_err": err_i, "ms": ibwt_ms,

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Time the iBWT kernels (tpz_torch/csrc/ibwt_walk.cu) at several splitter
-strides on the bzip2 decode headline of chip_smoke.py: 2 x 16 MiB of
-corpus.mixed (seeds 1000, 1001) encoded by the oracle at level 9, last
-columns from the symbol-walk kernel and the decode's own expansion and
-LF sort. Every stride must give the same bytes and flags.
+strides, each at several caps on the walk threads resident per SM, on
+the bzip2 decode headline of chip_smoke.py: 2 x 16 MiB of corpus.mixed
+(seeds 1000, 1001) encoded by the oracle at level 9, last columns from
+the symbol-walk kernel and the decode's own expansion and LF sort. Every
+stride and cap must give the same bytes and flags.
 
     python3 ibwt_stride.py
 
-Prints the card's name and power limit, then one line per stride: mean
-milliseconds of 5 warm calls (CUDA events). Needs one NVIDIA GPU and the
-repository checkout around it.
+Prints the card's name and power limit, then one line per stride and
+cap: the walk threads resident per SM (from the occupancy calculator)
+and the mean milliseconds of 5 warm calls (CUDA events). Needs one
+NVIDIA GPU and the repository checkout around it.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import torch
 
 import chip_smoke as cs
 
-STRIDES = (2048, 512, 256, 128, 64)
+STRIDES = (2048, 256, 128, 64, 32, 16)
+# Walk threads resident per SM asked for (0: as many as fit).
+RESIDENT = (0, 1792, 1536, 1280, 1024, 768, 512)
 
 
 def main() -> int:
@@ -39,18 +43,20 @@ def main() -> int:
     del recs, t
     want = None
     for seg in STRIDES:
-        got, _ = cs.timed(lambda: iw.ibwt(*args, seg))
-        _, ms = cs.timed(lambda: iw.ibwt(*args, seg), 5)
-        if want is None:
-            want = got
-        elif not (torch.equal(got[0], want[0])
-                  and torch.equal(got[1], want[1])):
-            raise RuntimeError(f"ibwt at seg {seg} differs from seg "
-                               f"{STRIDES[0]}")
-        cs.log("ibwt-stride", seg=seg, blocks=meta.shape[0],
-               nodes=int(args[2].long().sum()),
-               chains_per_block=iw.chains_per_block(N, seg),
-               ms=f"{ms:.3f}", card=f"'{smi}'")
+        for res in RESIDENT:
+            got, _ = cs.timed(lambda: iw.ibwt(*args, seg, res))
+            _, ms = cs.timed(lambda: iw.ibwt(*args, seg, res), 5)
+            if want is None:
+                want = got
+            elif not (torch.equal(got[0], want[0])
+                      and torch.equal(got[1], want[1])):
+                raise RuntimeError(f"ibwt at seg {seg}, resident {res}, "
+                                   f"differs from seg {STRIDES[0]}")
+            cs.log("ibwt-stride", seg=seg, resident_asked=res,
+                   resident=iw.walk_resident(res), blocks=meta.shape[0],
+                   nodes=int(args[2].long().sum()),
+                   chains_per_block=iw.chains_per_block(N, seg),
+                   ms=f"{ms:.3f}", card=f"'{smi}'")
     return 0
 
 

@@ -90,11 +90,15 @@ def lib() -> ctypes.CDLL:
         L.tpz_parse_v1_walk.restype = ci
         L.tpz_parse_v1_walk.argtypes = [vp] * 6 + [ci] * 7 + [vp]
         L.tpz_lzhuf_walk.restype = ci
-        L.tpz_lzhuf_walk.argtypes = [vp] * 6 + [ci] * 2 + [vp]
+        L.tpz_lzhuf_walk.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+        L.tpz_lzhuf_walk_occupancy.restype = ci
+        L.tpz_lzhuf_walk_occupancy.argtypes = [ci] * 3
         L.tpz_bzip2_walk.restype = ci
         L.tpz_bzip2_walk.argtypes = [vp] * 11 + [ci] * 5 + [vp]
         L.tpz_ibwt_walk.restype = ci
-        L.tpz_ibwt_walk.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+        L.tpz_ibwt_walk.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        L.tpz_ibwt_walk_resident.restype = ci
+        L.tpz_ibwt_walk_resident.argtypes = [ci]
         L.tpz_reach_walk.restype = ci
         L.tpz_reach_walk.argtypes = [vp] * 2 + [ci] * 2 + [vp]
         L.tpz_parse_v3w_walk.restype = ci
