@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """A parent checkout against this one, in turns on one NVIDIA GPU: the
 end-to-end metrics of the lh5 and bzip2 decode paths, through the LZHUF
-token walk (#5) and the inverse BWT (#7), and those two wrappers at the
-headline shapes.
+token walk (#5) and the inverse BWT (#7), those two wrappers at the
+headline shapes, and the two public functions no codec path reaches, the
+greedy reach walk (#8) and the v3w parse walk (#9).
 
     git archive <parent commit> | tar -x -C build/parent
     python3 ab_e2e.py build/parent [--pairs 3]
@@ -17,9 +18,11 @@ api.compress_many writes, which equal the oracle's) and bzip2 decode MB/s
 on the segmented layout of the first buffer's lh5 body (the headline
 decode dispatch's own input; with the layout's end-bit hint where the
 checkout has one) and `ibwt` on the headline bzip2 batch's last columns
-at the checkout's own IBWT_SEG, both by CUDA events, mean of 5 warm
-calls. The last line gives each metric's runs by side. Needs both
-checkouts' chip_smoke.py, whose functions make the inputs.
+at the checkout's own IBWT_SEG, `reach_walk` on the steps of the gzip
+level-6 parse of the buffers and `parse_extend_v3w` on that parse's
+screen (chip_smoke.py phase 19's headline), each by CUDA events, mean
+of 5 warm calls. The last line gives each metric's runs by side. Needs
+both checkouts' chip_smoke.py, whose functions make the inputs.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import sys
 import time
 
 METRICS = ("lh5_decode_mb_s", "bzip2_decode_mb_s", "lzhuf_walk_ms",
-           "ibwt_ms")
+           "ibwt_ms", "reach_walk_ms", "v3w_ms")
 
 
 def run_side(data_path: str) -> dict:
@@ -43,9 +46,11 @@ def run_side(data_path: str) -> dict:
     import torch
     import chip_smoke as cs
     from tpz_torch import api, oracle
+    from tpz_torch.codecs.deflate import DeflateConfig
     from tpz_torch.kernels import bzip2_walk as bw
     from tpz_torch.kernels import ibwt_walk as iw
     from tpz_torch.kernels import lzhuf_walk as lw
+    from tpz_torch.kernels import parse
 
     saved = np.load(data_path)
     bufs = [saved[f"buf{i}"].tobytes() for i in range(cs.HEADLINE_BUFFERS)]
@@ -77,6 +82,19 @@ def run_side(data_path: str) -> dict:
     run = lambda: iw.ibwt(*args, iw.IBWT_SEG)
     run()
     _, out["ibwt_ms"] = cs.timed(run, 5)
+    del args
+    cfg = DeflateConfig(level=cs.LEVEL)
+    inputs = cs.parse_inputs(bufs, cfg, "cuda")
+    pk1, pk2, _, words, bl = inputs
+    pargs = cs._parse_args(cfg)
+    mlen = parse.parse_extend_v3(*inputs, *pargs)[1]
+    step = torch.where(mlen >= 3, mlen, 1).to(torch.int32).contiguous()
+    for name, run in (
+            ("reach_walk_ms", lambda: parse.reach_walk(step)),
+            ("v3w_ms", lambda: parse.parse_extend_v3w(pk1, pk2, words, bl,
+                                                      *pargs[:7]))):
+        run()
+        _, out[name] = cs.timed(run, 5)
     torch.cuda.synchronize()
     return out
 

@@ -150,14 +150,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
               under torch.profiler (as phase 15; the MTF's kernels last,
               keys and walk, for the symbols and the selectors together)
  19. parse-kernels-8-9
-              the v3w walk kernel against its plain version on 1 MiB of
-              corpus.mixed and corpus.repetitive at levels 1 and 6
-              (greedy, lazy) and at the headline, and against #1 at
+              the v3w form of the v3 walk kernel against its plain version
+              on 1 MiB of corpus.mixed and corpus.repetitive at levels 1
+              and 6 (greedy, lazy) and at the headline, and against #1 at
               n_extend=1 at live positions; greedy_parse on the headline
               gzip parse's lengths gives back its token set, the reach
-              kernel equals the pointer doubling there; each called
+              kernels equal the pointer doubling there and on synthetic
+              rows at every tile of REACH_TILES (walks that never meet,
+              steps past whole tiles and of 65,535-70,000, steps below 1
+              and at or past N, N = 65,536 + 96, one row); each called
               through its public function with its count set to 0, both
-              timed at the headline
+              timed at the headline, the reach walk at each tile of
+              REACH_TILES; one greedy_parse call under torch.profiler (as
+              phase 12; the trace must hold both reach kernels)
  20. decode-profile
               one gzip decode call of phase 4's blobs under torch.profiler
               (as phase 12; the trace must hold the symbol walk's and the
@@ -227,8 +232,12 @@ OPS_COPY_POSITION = 16     # #3: a position's state and its check
 OPS_COPY_MATCHED = 12      # ... the copy of one matched position
 OPS_IBWT_STEP = 17         # #7: a node's step (its load, the successor
                            # test, its byte out; the function's own work)
-OPS_REACH_STEP = 8         # reach_walk.cu: a visited position
-OPS_V3W_TOKEN = 36         # parse_v3w_walk.cu: a token through TOK and FIN
+OPS_REACH_STEP = 8         # #8: a visited position (its load, step, mark;
+                           # counted from the serial walk, the function's
+                           # own work)
+OPS_V3W_TOKEN = 36         # #9: a token through TOK and FIN of the serial
+                           # walk (the function's own work, whatever the
+                           # design)
 OPS_V3W_EXTEND = 12        # ... one 4-byte extension compare
 # The bzip2 symbol walk (#6) and the MTF encode are counted from the work
 # of the function itself, whatever the design: a move-to-front moves as
@@ -246,6 +255,9 @@ BZIP2_LEVEL = 9
 # (ibwt_walk.IBWT_SEG), timed at the headline; ibwt_stride.py times a
 # wider range.
 IBWT_STRIDES = (16, 64, 128)
+# The reach walk's (#8) tile lengths timed at the headline; the fastest is
+# parse.REACH_TILE.
+REACH_TILES = (4096, 8192, 16384, 32768)
 # The MTF kernels' second segment length on the small inputs: short enough
 # that segment cuts fall inside runs and mid-block.
 MTF_SEG_CHECK = 32
@@ -1901,14 +1913,51 @@ def compare_v3w(inputs, cfg):
     return got, err, ms, plain_ms
 
 
+def reach_rows():
+    """Synthetic step rows for the reach walk, by name: [NB, N] int32 on
+    the card, made from a numpy seed."""
+    rng = np.random.default_rng(19)
+    n = 1 << 16
+    never = np.full((2, n), 2)
+    never[:, 0] = 1  # odd true walk; every tile's guess is even
+    never[1, n // 2:] = rng.integers(1, 9, size=n // 2)
+    skip = rng.integers(1, 9, size=(4, n))
+    skip[0, 0] = 40000                  # past the first tiles of any size
+    skip[1, ::5003] = 17000             # past a 16,384 tile, repeatedly
+    skip[2, 10] = 65500                 # fits 16 bits, to the last tile
+    skip[3, 7::4099] = 65536            # would wrap a 16-bit code to 0
+    skip[3, 60001::7] = 70000
+    ends = rng.integers(-5, 4, size=(3, n))
+    ends[1, 1000] = n
+    ends[2, 2000] = 2**31 - 1
+    rows = {"never_meeting": never, "skipping": skip, "below_1_and_past_n":
+            ends, "n_65632": rng.integers(1, 259, size=(3, n + 96)),
+            "one_row": rng.integers(1, 259, size=(1, n))}
+    return {k: torch.from_numpy(v.astype(np.int32)).cuda()
+            for k, v in rows.items()}
+
+
+def compare_reach(step, want):
+    """reach_walk vs the doubling's mask `want` on the card: max abs
+    difference, which must be 0."""
+    from tpz_torch.kernels import parse
+
+    err = int((parse.reach_walk(step) - want).abs().max())
+    if err:
+        raise RuntimeError(f"reach kernels disagree with plain at "
+                           f"REACH_TILE={parse.REACH_TILE}: {err}")
+    return err
+
+
 def phase_parse_kernels_8_9(headline, small):
     """#8 and #9 through their public functions (no codec path reaches
     either, as in the reference): greedy_parse on the headline gzip
     parse's lengths, whose token set it must give back, and #8 against
-    its doubling; parse_extend_v3w against its plain version on the 1 MiB
-    inputs (greedy and lazy) and at the headline, and against #1 at
-    n_extend=1 at live positions. Returns the kernel-line rows and
-    launches of #8 and #9."""
+    its doubling, there and on reach_rows() at each tile of REACH_TILES
+    (timed at each), and one greedy_parse call profiled; parse_extend_v3w
+    against its plain version on the 1 MiB inputs (greedy and lazy) and at
+    the headline, and against #1 at n_extend=1 at live positions. Returns
+    the kernel-line rows and launches of #8 and #9."""
     from tpz_torch.codecs.deflate import DeflateConfig
     from tpz_torch.kernels import parse
 
@@ -1972,8 +2021,35 @@ def phase_parse_kernels_8_9(headline, small):
         tokens=int(ntok.sum()), visited=int(got8.sum()),
         reach_cold_s=f"{dt8:.3f}", reach_launches=c8["reach"],
         token_set_equal=True, reach_max_abs_err=err8,
-        reach_ms=f"{reach_ms:.3f}", reach_plain_ms=f"{reach_plain_ms:.3f}",
+        reach_tile=parse.REACH_TILE, reach_ms=f"{reach_ms:.3f}",
+        reach_plain_ms=f"{reach_plain_ms:.3f}",
         reach_bound_ms=f"{reach_bound['bound_ms']:.4f}")
+
+    # The tiles: each synthetic row and the headline at every tile length,
+    # the headline timed there (5 warm calls each).
+    default = parse.REACH_TILE
+    rows = reach_rows()
+    wants = {k: parse._reach_doubling(torch.clamp(v.long(), min=1)).int()
+             for k, v in rows.items()}
+    tile_ms = {}
+    try:
+        for tile in REACH_TILES:
+            parse.REACH_TILE = tile
+            for name, v in rows.items():
+                err8 = max(err8, compare_reach(v, wants[name]))
+            err8 = max(err8, compare_reach(step, want8))
+            _, tile_ms[tile] = timed(lambda: parse.reach_walk(step), 5)
+    finally:
+        parse.REACH_TILE = default
+    log("parse-kernels-8-9", reach_rows=json.dumps(
+        {k: list(v.shape) for k, v in rows.items()}),
+        reach_rows_max_abs_err=err8,
+        reach_ms_by_tile=json.dumps({t: round(ms, 4)
+                                     for t, ms in tile_ms.items()}),
+        fastest_tile=min(tile_ms, key=tile_ms.get))
+    del rows, wants
+    profile_call(lambda: parse.greedy_parse(mlen, mdist, bl), "greedy_parse",
+                 {"reach": parse.reach_walk}, phase="parse-kernels-8-9")
     return ({"max_abs_err": err8, "ms": reach_ms, "plain_ms": reach_plain_ms,
              **reach_bound}, c8["reach"],
             {"max_abs_err": err9, "ms": v3w_ms, "plain_ms": v3w_plain_ms,
@@ -2045,7 +2121,7 @@ def main() -> int:
              bz["ibwt"], bz_ibwt),
             ("reach_walk", "reach_walk.cu", "tpz/kernels/parse.py:29",
              reach_n, reach),
-            ("parse_walk_v3w", "parse_v3w_walk.cu", "tpz/kernels/parse.py:211",
+            ("parse_walk_v3w", "parse_walk.cu", "tpz/kernels/parse.py:211",
              v3w_n, v3w),
             ("mtf_encode", "mtf_encode.cu", "tpz/kernels/mtf.py:36", mtf_n,
              mtf_row)]

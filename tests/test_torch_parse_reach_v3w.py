@@ -1,10 +1,12 @@
 """The last two TPU kernels' functions in the port, on the CPU: the greedy
 reach walk (`greedy_parse`, `reach_walk`; the reference's greedy_parse
 and _parse_pallas) and the interleaved spec-v3 walk
-(`parse_extend_v3w_plain`; the reference's parse_extend_pallas_v3w),
+(`parse_extend_v3w_plain`, and the torch twin of its kernel,
+`parse_extend_v3w_tokens_plain`; the reference's parse_extend_pallas_v3w),
 each held against JAX's function (Pallas kernels in interpret mode) on the
 same inputs made from a numpy seed. Everything compared is integer: the
-tolerance is exact equality."""
+tolerance is exact equality. The reach walk's tiled twin is in
+test_torch_reach_tiles.py."""
 
 import jax
 import jax.numpy as jnp
@@ -156,16 +158,88 @@ def test_v3w_wrapper_takes_the_plain_walk_on_the_cpu(v3w_case):
     assert parse.parse_extend_v3w.launches == before
 
 
-@pytest.mark.parametrize("restart", [0, 512])
-def test_v3w_plain_matches_jax_at_other_restarts(restart):
-    """One sub-walk per block (restart 0) and two (512), on a second
-    input, greedy."""
+@pytest.fixture(scope="module", params=[0, 512])
+def restart(request):
+    return request.param
+
+
+@pytest.fixture(scope="module")
+def restart_case(restart):
+    """(inputs, JAX's v3w outputs in interpret mode) at one sub-walk per
+    block (restart 0) or two (512), on a second input, greedy."""
     pk1, pk2, _, words, bl = _screen(99, tail=600)
     want = parse_extend_pallas_v3w(
         pk1, pk2, words, bl[:, None], WINDOW, 258, 16, restart=restart,
         nblk=2, interpret=True)
+    return (pk1, pk2, words, bl), [np.asarray(x) for x in want]
+
+
+def test_v3w_plain_matches_jax_at_other_restarts(restart, restart_case):
+    """One sub-walk per block (restart 0) and two (512), on a second
+    input, greedy."""
+    (pk1, pk2, words, bl), want = restart_case
     got = parse.parse_extend_v3w_plain(
         _t(pk1), _t(pk2), _t(words), _t(bl), WINDOW, 258, 16,
         restart=restart)
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+# ------------------------------------- the v3w form of the v3 walk kernel
+
+
+@pytest.mark.parametrize("chunks", [1, 4, 32])
+def test_v3w_tokens_twin_matches_jax_v3w(v3w_case, chunks):
+    """The kernel's twin (the token at every position with v3w's derived
+    cap and no candidate 2, then the chunk walks) equals JAX's v3w at
+    every position, greedy and lazy, at 1, 4 and 32 chunk walks a
+    sub-walk."""
+    lazy, (pk1, pk2, _, words, bl), want = v3w_case
+    got = parse.parse_extend_v3w_tokens_plain(
+        _t(pk1), _t(pk2), _t(words), _t(bl), WINDOW, 258, 16, lazy=lazy,
+        restart=RESTART, chunks=chunks)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_v3w_tokens_twin_matches_jax_at_other_restarts(restart,
+                                                       restart_case):
+    (pk1, pk2, words, bl), want = restart_case
+    got = parse.parse_extend_v3w_tokens_plain(
+        _t(pk1), _t(pk2), _t(words), _t(bl), WINDOW, 258, 16,
+        restart=restart, chunks=4)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_v3w_tokens_twin_equals_plain_v3w():
+    """The twin equals the plain version on a third input with a short
+    last block, greedy and lazy; its pk2 is never read (n_extend 1), so
+    a pk2 of garbage changes nothing."""
+    pk1, pk2, _, words, bl = _screen(7, tail=300)
+    junk = np.random.default_rng(5).integers(0, 1 << 30, pk2.shape)
+    for lazy in (False, True):
+        want = parse.parse_extend_v3w_plain(
+            _t(pk1), _t(pk2), _t(words), _t(bl), WINDOW, 258, 16,
+            lazy=lazy, restart=RESTART)
+        got = parse.parse_extend_v3w_tokens_plain(
+            _t(pk1), _t(junk.astype(np.int32)), _t(words), _t(bl), WINDOW,
+            258, 16, lazy=lazy, restart=RESTART)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def test_v3w_shared_memory_check():
+    """The v3w wrapper's check before any launch: a sub-walk of 16,384
+    positions (the gzip levels) or a whole 65,536-position row (restart
+    0) fits a CUDA block's shared memory; a 131,072-position row does
+    not, and raises ValueError rather than launching."""
+    for restart in (16384, 65536):
+        parse.check_parse_v3_restart(restart, "v3w parse walk")
+    with pytest.raises(ValueError, match="v3w parse walk: restart=131072"):
+        parse.check_parse_v3_restart(131072, "v3w parse walk")
+    largest = max(r for r in range(100_000, 120_000)
+                  if parse.parse_v3_shared_bytes(r) <= parse.SHARED_LIMIT)
+    assert 108_000 < largest < 110_000
+    with pytest.raises(ValueError, match="shared memory"):
+        parse.check_parse_v3_restart(largest + 1)

@@ -1,7 +1,8 @@
 // The chunked walk through shared memory shared by the parse kernels
-// (parse_v1_walk.cu, parse_walk.cu): the positions a walk p -> p +
-// step(p) visits from 0 until p >= n, as bits, when every step is known
-// in advance and lies in shared memory.
+// (parse_v1_walk.cu, parse_walk.cu) and the reach walk's tiles
+// (reach_walk.cu): the positions a walk p -> p + step(p) visits from 0
+// until p >= n, as bits, when every step is known in advance and lies in
+// shared memory.
 //
 // One warp runs it. Each lane walks one of 32 chunks of whole 32-position
 // words from the chunk's start, as if a token began there (a guess),

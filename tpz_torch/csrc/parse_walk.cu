@@ -1,22 +1,37 @@
 // Spec-v3 parse walk on Hopper: one CUDA block per restart sub-walk,
 // tokens at every position in parallel, then a walk through shared memory.
+// Two forms of one templated body: parse_walk_v3 (#1) and parse_walk_v3w
+// (#9).
 //
-// Replaces tpz/kernels/parse.py::parse_extend_pallas_v3y (and its XLA
-// form parse_extend_v3z): the greedy/lazy LZSS parse with 4-byte match
-// extension and the candidate-2 latch, over independent sub-walks of
-// `restart` positions (restart = N: one walk a block). The walk of a
-// sub-walk visits p from its start, emits the token at p and goes on at
-// p + max(lnE, 1) while p < pend = min(sub-walk end, block_len); it does
-// not go on past block_len. The outputs hold the token's mark (dE << 10)
-// | (lnE + 1) at visited positions and 0 elsewhere, as visited = mark &
-// 1023, mlen = max(visited - 1, 0), mdist = mark >> 10 where mlen > 0.
+// parse_walk_v3 replaces tpz/kernels/parse.py::parse_extend_pallas_v3y
+// (and its XLA form parse_extend_v3z): the greedy/lazy LZSS parse with
+// 4-byte match extension and the candidate-2 latch, over independent
+// sub-walks of `restart` positions (restart = N: one walk a block). The
+// walk of a sub-walk visits p from its start, emits the token at p and
+// goes on at p + max(lnE, 1) while p < pend = min(sub-walk end,
+// block_len); it does not go on past block_len. The outputs hold the
+// token's mark (dE << 10) | (lnE + 1) at visited positions and 0
+// elsewhere, as visited = mark & 1023, mlen = max(visited - 1, 0), mdist =
+// mark >> 10 where mlen > 0.
+//
+// parse_walk_v3w replaces tpz/kernels/parse.py::parse_extend_pallas_v3w,
+// the interleaved walk, which computes the same parse from the raw screen
+// words with two differences: its cap at q is derived from q,
+// min(max_match, block_len - q, restart - q mod restart), where #1 reads
+// cap_at; and it never loads candidate 2 (R4), so it is #1 at n_extend =
+// 1. The template's kV3w form takes the cap from q in the saturation test
+// too, and reads neither cap_at nor pk2 (the wrapper passes no rows for
+// them). The TPU version interleaves W sub-walks a micro-step at a time in
+// one kernel body so that their VMEM reads pipeline; none of that carries
+// over.
 //
 // Why the token at p is a function of p alone. The TOK / EXT / FIN
 // machine of the serial walk (parse_extend_v3z's micro-steps) carries
 // nothing from one token to the next: every state variable is set when
 // the token at p begins, from loads at p and p + 1 only.
 //   - The mark w1(q) (_v3_marks) is a function of the screen words at q
-//     and q + 1, cap_at, and block_len: the saturated screen, the too-far
+//     and q + 1, the cap (cap_at; v3w: derived from q) and block_len:
+//     the saturated screen, the too-far
 //     rule, and with `lazy` the demotion against the unsaturated
 //     neighbour's length, or the RAW flag for a saturated q or neighbour.
 //   - An unflagged mark is the token (the fast path).
@@ -41,7 +56,8 @@
 //       range from another block;
 //   (b) warp 0 walks p -> p + step from the sub-walk's start to pend in
 //       shared memory: 32 chunk walks from guessed starts, put in order by
-//       lane 0 (chunk_walk.cuh, shared with parse_v1_walk.cu);
+//       lane 0 (chunk_walk.cuh, shared with parse_v1_walk.cu and
+//       reach_walk.cu);
 //   (c) the threads write visited, mlen and mdist in coalesced rows from
 //       the visited bits and the scratch marks.
 // A block a sub-walk (2,048 blocks at 2 x 16 MiB, restart 16 KiB) rather
@@ -50,8 +66,8 @@
 // threads an SM (__launch_bounds__ holds the registers to it).
 // Shared memory: 2 bytes a position and the visited bits,
 // parse_v3_shared_bytes(restart) in kernels/parse.py (34 KiB at 16,384;
-// 136 KiB at restart 0 with N = 65,536, one block an SM), which the
-// wrapper checks against the limit before any launch.
+// 136 KiB at restart 0 with N = 65,536, one block an SM), which both
+// wrappers check against the limit before any launch.
 //
 // What bounds it: (a), which extends every saturated position, the
 // walk's or not, and at a probe extends p + 1 as well: a long match costs
@@ -64,10 +80,11 @@
 // one thread a sub-walk. The bound in chip_smoke.py counts the serial
 // walk's work: its tokens, its extension compares and the bytes.
 //
-// Layout: pk1, pk2, cap_at, visited, mlen, mdist are [NB, N] int32;
-// words is [NB, M] int32, the u32 little-endian 4-byte window at every
-// haloed position (M-index = block position + window); block_len is [NB]
-// int32. Word indices are clamped into the row as in the serial walk.
+// Layout: pk1, pk2, cap_at, visited, mlen, mdist are [NB, N] int32 (the
+// v3w form reads no pk2 or cap_at); words is [NB, M] int32, the u32
+// little-endian 4-byte window at every haloed position (M-index = block
+// position + window); block_len is [NB] int32. Word indices are clamped
+// into the row as in the serial walk.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -102,15 +119,25 @@ __device__ __forceinline__ int shl10(int x) {
   return (int)((uint32_t)x << 10);
 }
 
+// The cap at q: cap_at's, or in the v3w form the one v3w derives from q,
+// min(max_match, block_len - q, restart - q mod restart).
+template <bool kV3w>
+__device__ __forceinline__ int cap_of(const Rows& R, int q, const Params& P) {
+  if (kV3w)
+    return min(min(P.max_match, R.blen - q), P.restart - q % P.restart);
+  return R.cap_at[q];
+}
+
 // The screen's length at q after the no-candidate and too-far rules
 // (_v3_marks' lnp), its distance (distp) and whether it saturates (satp).
+template <bool kV3w>
 __device__ __forceinline__ void screen_at(const Rows& R, int q,
                                           const Params& P, int& ln,
                                           int& dist, bool& sat) {
   const int pk = R.pk1[q];
   const int ss1 = (pk & 63) - 1;
   const int jj1 = (pk >> 6) - 1;
-  sat = ss1 >= min(R.cap_at[q], P.screen_bytes) && jj1 >= 0;
+  sat = ss1 >= min(cap_of<kV3w>(R, q, P), P.screen_bytes) && jj1 >= 0;
   ln = (jj1 < 0 || ss1 < 3) ? 0 : ss1;
   dist = q + P.window - jj1;
   if (ln == 3 && dist > P.too_far) ln = 0;
@@ -118,15 +145,16 @@ __device__ __forceinline__ void screen_at(const Rows& R, int q,
 }
 
 // _v3_marks at q (0 <= q < N).
+template <bool kV3w>
 __device__ int mark_at(const Rows& R, int q, const Params& P) {
   int ln, dist;
   bool sat;
-  screen_at(R, q, P, ln, dist, sat);
+  screen_at<kV3w>(R, q, P, ln, dist, sat);
   bool demote = false, flagged = sat;
   if (P.lazy) {
     int ln1 = 0, d1;
     bool sat1 = false;
-    if (q + 1 < P.N) screen_at(R, q + 1, P, ln1, d1, sat1);
+    if (q + 1 < P.N) screen_at<kV3w>(R, q + 1, P, ln1, d1, sat1);
     const bool probe = ln > 0 && ln < P.max_lazy && q + 1 < R.blen;
     demote = probe && !sat1 && ln1 > ln;
     flagged = sat || (probe && sat1);
@@ -159,6 +187,8 @@ __device__ int extend(const uint32_t* __restrict__ wrow, int q, int k, int j,
 
 // A flagged position q (raw screen word apk, pk2 read at qc): the
 // serial walk's TOK, EXT and FIN without the lazy rule. Gives (lnf, distf).
+// The v3w form never extends candidate 2.
+template <bool kV3w>
 __device__ void full_at(const Rows& R, int q, int qc, int apk,
                         const Params& P, int& lnf, int& distf) {
   const int ss1 = (apk & 63) - 1;
@@ -171,7 +201,7 @@ __device__ void full_at(const Rows& R, int q, int qc, int apk,
   if (ss1 >= scap && jj1 >= 0) {
     const int ln1 = extend(R.words, q, ss1, jj1, cap, P);
     lnf = ln1;
-    if (P.n_extend >= 2) {
+    if (!kV3w && P.n_extend >= 2) {
       const int b = R.pk2[qc];
       const int s2v = (b & 63) - 1;
       const int j2v = (b >> 6) - 1;
@@ -189,26 +219,27 @@ __device__ void full_at(const Rows& R, int q, int qc, int apk,
 }
 
 // The token the walk emits at p (p < pend): its mark, and its step.
+template <bool kV3w>
 __device__ int token_at(const Rows& R, int p, const Params& P, int& step) {
-  const int a = mark_at(R, p, P);
+  const int a = mark_at<kV3w>(R, p, P);
   const int apk = a & (kRaw - 1);
   if (!(a & kRaw)) {
     step = max((apk & 1023) - 1, 1);
     return apk;
   }
   int lnE, dE;
-  full_at(R, p, p, apk, P, lnE, dE);
+  full_at<kV3w>(R, p, p, apk, P, lnE, dE);
   if (P.lazy && lnE > 0 && lnE < P.max_lazy && p + 1 < R.blen) {
     const int q = p + 1;
     const int qc = min(q, P.N - 1);
-    const int a1 = mark_at(R, qc, P);
+    const int a1 = mark_at<kV3w>(R, qc, P);
     const int apk1 = a1 & (kRaw - 1);
     int ln1, d1;
     if (!(a1 & kRaw)) {
       const int aln = apk1 & 1023;
       ln1 = aln == 1 ? (apk1 >> 10) & 511 : aln - 1;
     } else {
-      full_at(R, q, qc, apk1, P, ln1, d1);
+      full_at<kV3w>(R, q, qc, apk1, P, ln1, d1);
     }
     if (ln1 > lnE) lnE = dE = 0;
   }
@@ -216,14 +247,14 @@ __device__ int token_at(const Rows& R, int p, const Params& P, int& step) {
   return shl10(dE) | (lnE + 1);
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
-    parse_walk_v3(const int32_t* __restrict__ pk1,
-                  const int32_t* __restrict__ pk2,
-                  const int32_t* __restrict__ cap_at,
-                  const int32_t* __restrict__ words,
-                  const int32_t* __restrict__ block_len,
-                  int32_t* __restrict__ visited, int32_t* __restrict__ mlen,
-                  int32_t* __restrict__ mdist, int nsub, Params P) {
+// The kernel body: a block a sub-walk, (a) to (c) above.
+template <bool kV3w>
+__device__ __forceinline__ void walk_body(
+    const int32_t* __restrict__ pk1, const int32_t* __restrict__ pk2,
+    const int32_t* __restrict__ cap_at, const int32_t* __restrict__ words,
+    const int32_t* __restrict__ block_len, int32_t* __restrict__ visited,
+    int32_t* __restrict__ mlen, int32_t* __restrict__ mdist, int nsub,
+    const Params& P) {
   extern __shared__ uint32_t smem[];
   const int R = P.restart;
   const int nvis = (R + 31) >> 5;
@@ -233,7 +264,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int blk = blockIdx.x / nsub;
   const int r0 = (blockIdx.x - blk * nsub) * R;
   const size_t row = (size_t)blk * P.N;
-  const Rows rows{pk1 + row, pk2 + row, cap_at + row,
+  const Rows rows{pk1 + row, kV3w ? nullptr : pk2 + row,
+                  kV3w ? nullptr : cap_at + row,
                   reinterpret_cast<const uint32_t*>(words) +
                       (size_t)blk * P.M,
                   block_len[blk]};
@@ -244,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   for (int i = threadIdx.x; i < nvis; i += kThreads) vis[i] = 0;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     int step;
-    srow[i] = token_at(rows, r0 + i, P, step);
+    srow[i] = token_at<kV3w>(rows, r0 + i, P, step);
     code[i] = (uint16_t)step;
   }
   __syncthreads();
@@ -265,6 +297,35 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 3)
+    parse_walk_v3(const int32_t* __restrict__ pk1,
+                  const int32_t* __restrict__ pk2,
+                  const int32_t* __restrict__ cap_at,
+                  const int32_t* __restrict__ words,
+                  const int32_t* __restrict__ block_len,
+                  int32_t* __restrict__ visited, int32_t* __restrict__ mlen,
+                  int32_t* __restrict__ mdist, int nsub, Params P) {
+  walk_body<false>(pk1, pk2, cap_at, words, block_len, visited, mlen, mdist,
+                   nsub, P);
+}
+
+// The v3w form (#9): the cap derived from q, no candidate 2.
+__global__ void __launch_bounds__(kThreads, 3)
+    parse_walk_v3w(const int32_t* __restrict__ pk1,
+                   const int32_t* __restrict__ words,
+                   const int32_t* __restrict__ block_len,
+                   int32_t* __restrict__ visited, int32_t* __restrict__ mlen,
+                   int32_t* __restrict__ mdist, int nsub, Params P) {
+  walk_body<true>(pk1, nullptr, nullptr, words, block_len, visited, mlen,
+                  mdist, nsub, P);
+}
+
+// The dynamic shared memory of a block for sub-walks of `restart`
+// positions: the visited bits and a 16-bit step a position.
+int shared_bytes(int restart) {
+  return 4 * ((restart + 31) / 32) + 2 * restart;
+}
+
 }  // namespace
 
 // pk1, pk2, cap_at [NB, N] int32, words [NB, M] int32, block_len [NB]
@@ -283,13 +344,39 @@ extern "C" int tpz_parse_walk_v3(const void* pk1, const void* pk2,
   if (NB == 0 || nsub == 0) return 0;
   const Params P{N, M, window, restart, max_match, screen_bytes, too_far,
                  lazy, max_lazy, n_extend};
-  const int smem = 4 * ((restart + 31) / 32) + 2 * restart;
+  const int smem = shared_bytes(restart);
   cudaError_t err = cudaFuncSetAttribute(
       parse_walk_v3, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   parse_walk_v3<<<NB * nsub, kThreads, smem, stream>>>(
       static_cast<const int32_t*>(pk1), static_cast<const int32_t*>(pk2),
       static_cast<const int32_t*>(cap_at), static_cast<const int32_t*>(words),
+      static_cast<const int32_t*>(block_len), static_cast<int32_t*>(visited),
+      static_cast<int32_t*>(mlen), static_cast<int32_t*>(mdist), nsub, P);
+  return (int)cudaGetLastError();
+}
+
+// The v3w form: pk1 [NB, N] int32, words [NB, M] int32, block_len [NB]
+// int32; visited, mlen, mdist [NB, N] int32 (every position written).
+// restart divides N; the caller checks that its shared memory fits.
+// Returns a cudaError_t.
+extern "C" int tpz_parse_v3w_walk(const void* pk1, const void* words,
+                                  const void* block_len, void* visited,
+                                  void* mlen, void* mdist, int NB, int N,
+                                  int M, int window, int restart,
+                                  int max_match, int screen_bytes,
+                                  int too_far, int lazy, int max_lazy,
+                                  cudaStream_t stream) {
+  const int nsub = N / restart;
+  if (NB == 0 || nsub == 0) return 0;
+  const Params P{N, M, window, restart, max_match, screen_bytes, too_far,
+                 lazy, max_lazy, 1};
+  const int smem = shared_bytes(restart);
+  cudaError_t err = cudaFuncSetAttribute(
+      parse_walk_v3w, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  parse_walk_v3w<<<NB * nsub, kThreads, smem, stream>>>(
+      static_cast<const int32_t*>(pk1), static_cast<const int32_t*>(words),
       static_cast<const int32_t*>(block_len), static_cast<int32_t*>(visited),
       static_cast<int32_t*>(mlen), static_cast<int32_t*>(mdist), nsub, P);
   return (int)cudaGetLastError();

@@ -100,9 +100,9 @@ def lib() -> ctypes.CDLL:
         L.tpz_ibwt_walk_resident.restype = ci
         L.tpz_ibwt_walk_resident.argtypes = [ci]
         L.tpz_reach_walk.restype = ci
-        L.tpz_reach_walk.argtypes = [vp] * 2 + [ci] * 2 + [vp]
+        L.tpz_reach_walk.argtypes = [vp] * 3 + [ci] * 3 + [vp]
         L.tpz_parse_v3w_walk.restype = ci
-        L.tpz_parse_v3w_walk.argtypes = [vp] * 4 + [ci] * 10 + [vp]
+        L.tpz_parse_v3w_walk.argtypes = [vp] * 6 + [ci] * 10 + [vp]
         L.tpz_mtf_encode.restype = ci
         L.tpz_mtf_encode.argtypes = [vp] * 4 + [ci] * 4 + [vp]
         _LIB = L

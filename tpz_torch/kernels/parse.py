@@ -36,14 +36,18 @@ every position where a token starts, 0 elsewhere.
 
 Spec v3, interleaved (the reference's parse_extend_pallas_v3w; no codec
 path calls it, in either package): the same walk reading the raw screen
-words, without marks or cap_at. `parse_extend_v3w_plain` is the plain
-version, `parse_extend_v3w` the wrapper (CUDA kernel
-`tpz_torch/csrc/parse_v3w_walk.cu` on a card).
+words, with the cap derived from the position in place of cap_at, and no
+second candidate. `parse_extend_v3w_plain` is the plain version,
+`parse_extend_v3w` the wrapper (on a card the v3w form of the v3 walk
+kernel, `parse_walk_v3w` in `tpz_torch/csrc/parse_walk.cu`), and
+`parse_extend_v3w_tokens_plain` that form's torch twin, for the tests.
 
 Greedy reach (the reference's greedy_parse and its _parse_pallas; no
 codec path calls them either): `greedy_parse` follows p -> p + step(p)
 through `reach_walk`, whose plain version is the pointer doubling
-`_reach_doubling` and whose kernel is `tpz_torch/csrc/reach_walk.cu`.
+`_reach_doubling` and whose kernels are in `tpz_torch/csrc/reach_walk.cu`
+(tiles of `REACH_TILE` positions walked in shared memory, then stitched
+across tiles); `reach_tiles_plain` is their torch twin, for the tests.
 """
 
 from __future__ import annotations
@@ -476,6 +480,18 @@ def parse_v3_shared_bytes(restart: int) -> int:
     return 2 * restart + 4 * ((restart + 31) // 32) + 4 * 32
 
 
+def check_parse_v3_restart(restart: int, what: str = "parse walk") -> None:
+    """Raises ValueError unless one CUDA block of the v3 walk kernel (both
+    forms) holds a sub-walk of `restart` positions in shared memory
+    (16,384 at the gzip levels; a whole row of up to ~109 k positions at
+    restart 0)."""
+    need = parse_v3_shared_bytes(restart)
+    if need > SHARED_LIMIT:
+        raise ValueError(
+            f"{what}: restart={restart} needs {need} bytes of shared "
+            f"memory; a CUDA block holds at most {SHARED_LIMIT}")
+
+
 def parse_extend_v3(pk1, pk2, cap_at, words, block_len, window,
                     max_match=258, screen_bytes=16, too_far=4096,
                     lazy=False, max_lazy=258, restart=0, n_extend=2,
@@ -507,11 +523,7 @@ def parse_extend_v3(pk1, pk2, cap_at, words, block_len, window,
     if N % restart or M < N + window + max_match:
         raise ValueError(f"parse walk: bad geometry N={N} M={M} "
                          f"restart={restart} window={window}")
-    need = parse_v3_shared_bytes(restart)
-    if need > SHARED_LIMIT:
-        raise ValueError(
-            f"parse walk: restart={restart} needs {need} bytes of shared "
-            f"memory; a CUDA block holds at most {SHARED_LIMIT}")
+    check_parse_v3_restart(restart)
     visited = torch.empty((NB, N), dtype=torch.int32, device=pk1.device)
     mlen = torch.empty_like(visited)
     mdist = torch.empty_like(visited)
@@ -562,17 +574,37 @@ def parse_extend_v3w_plain(pk1, pk2, words, block_len, window,
                             restart, n_extend=1, group=group)
 
 
+def parse_extend_v3w_tokens_plain(pk1, pk2, words, block_len, window,
+                                  max_match=258, screen_bytes=16,
+                                  too_far=4096, lazy=False, max_lazy=258,
+                                  restart=0, chunks=32):
+    """The torch twin of the v3w form of the v3 walk kernel: the v3
+    kernel's twin (parse_extend_v3_tokens_plain) with v3w's cap, derived
+    from the position, and n_extend=1. Equals parse_extend_v3w_plain for
+    every `chunks`."""
+    N = pk1.shape[1]
+    if not restart or restart >= N:
+        restart = N
+    cap_at = _v3w_cap_at(block_len, N, max_match, restart)
+    return parse_extend_v3_tokens_plain(
+        pk1, pk2, cap_at, words, block_len, window, max_match, screen_bytes,
+        too_far, lazy, max_lazy, restart, n_extend=1, chunks=chunks)
+
+
 def parse_extend_v3w(pk1, pk2, words, block_len, window, max_match=258,
                      screen_bytes=16, too_far=4096, lazy=False, max_lazy=258,
                      restart=0):
     """The interleaved spec-v3 walk: the plain version for CPU tensors, the
-    CUDA kernel (csrc/parse_v3w_walk.cu, one thread per restart sub-walk)
-    for CUDA tensors. pk1, pk2 [NB, N] int32 block-local screen words;
-    words [NB, M] int32; block_len [NB] int32; all contiguous. Returns
-    (visited, mlen, mdist) [NB, N] int32. The reference's nblk (blocks per
-    grid step) and W (sub-walks interleaved in one kernel body) only
-    spread its walks over a TPU core and change no result: they have no
-    counterpart."""
+    v3w form of the v3 walk kernel (parse_walk_v3w in csrc/parse_walk.cu:
+    a CUDA block a restart sub-walk, tokens at every position in parallel,
+    then the walk through shared memory) for CUDA tensors. pk1, pk2 [NB,
+    N] int32 block-local screen words (the kernel reads no pk2); words
+    [NB, M] int32; block_len [NB] int32; all contiguous. Returns (visited,
+    mlen, mdist) [NB, N] int32. A sub-walk must fit a CUDA block's shared
+    memory (check_parse_v3_restart): at restart 0, rows of up to ~109 k
+    positions. The reference's nblk (blocks per grid step) and W
+    (sub-walks interleaved in one kernel body) only spread its walks over
+    a TPU core and change no result: they have no counterpart."""
     if pk1.device.type == "cpu":
         return parse_extend_v3w_plain(pk1, pk2, words, block_len, window,
                                       max_match, screen_bytes, too_far, lazy,
@@ -595,28 +627,92 @@ def parse_extend_v3w(pk1, pk2, words, block_len, window, max_match=258,
     if N % restart or M < N + window + max_match:
         raise ValueError(f"v3w parse walk: bad geometry N={N} M={M} "
                          f"restart={restart} window={window}")
-    out = torch.zeros((NB, N), dtype=torch.int32, device=pk1.device)
+    check_parse_v3_restart(restart, "v3w parse walk")
+    visited = torch.empty((NB, N), dtype=torch.int32, device=pk1.device)
+    mlen = torch.empty_like(visited)
+    mdist = torch.empty_like(visited)
     from tpz_torch.kernels import _build
 
     with torch.cuda.device(pk1.device):
         rc = _build.lib().tpz_parse_v3w_walk(
             pk1.data_ptr(), words.data_ptr(), block_len.data_ptr(),
-            out.data_ptr(), NB, N, M, window, restart, max_match,
-            screen_bytes, too_far, int(lazy), max_lazy,
-            torch.cuda.current_stream().cuda_stream)
+            visited.data_ptr(), mlen.data_ptr(), mdist.data_ptr(), NB, N, M,
+            window, restart, max_match, screen_bytes, too_far, int(lazy),
+            max_lazy, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"v3w parse walk kernel launch failed: cudaError {rc}")
     parse_extend_v3w.launches += 1
-    return _outputs(out)
+    return visited, mlen, mdist
 
 
 parse_extend_v3w.launches = 0
-parse_extend_v3w.kernels = ("parse_v3w_walk",)
+parse_extend_v3w.kernels = ("parse_walk_v3w",)
 
 
 # ------------------------------------------------------------ greedy reach
 
 MIN_MATCH = 3
+# Positions a CUDA block of the reach walk's first kernel walks (a tile):
+# a multiple of 32, at most 32,768, so that a step cut to the tile's end
+# fits 16 bits (and the tile's 68 KiB at most of shared memory fit a
+# block). The fastest of 4,096-32,768 on the gzip headline (PERF.md §6).
+REACH_TILE = 16384
+
+
+def reach_tiles_plain(step: torch.Tensor, tile: int) -> torch.Tensor:
+    """The reach walk kernels' torch twin: [NB, N] steps (below 1 counts
+    as 1) -> [NB, N] bool, found as csrc/reach_walk.cu finds them. Each
+    tile of `tile` positions is walked from its start, a guess, by 32
+    chunk walks (chunk_walks) over its steps cut to the tile's end, and
+    its exit taken from its last visited position's step; then, tile by tile
+    from the true walk of tile 0, the true walk from the previous exit
+    runs until it lands on a position the tile's guessed walk visited or
+    leaves the tile, the guessed marks below that point are cleared and
+    the true ones set. Equals _reach_doubling for every `tile`."""
+    NB, N = step.shape
+    dev = step.device
+    nt = -(-N // tile)
+    st = torch.clamp(step.to(torch.int64), min=1)
+    t0 = torch.arange(nt, device=dev) * tile
+    n = torch.clamp(N - t0, max=tile).repeat(NB)  # [NB * nt]
+    i = torch.arange(tile, device=dev)
+    code = torch.nn.functional.pad(st, (0, nt * tile - N), value=1)
+    code = torch.clamp(torch.minimum(code.reshape(NB * nt, tile),
+                                     n[:, None] - i), min=1)
+    tvis = chunk_walks(code, n)
+    last = torch.where(tvis, i, -1).max(dim=1).values.reshape(NB, nt)
+    p = t0[None, :] + last
+    exits = torch.clamp(p + st.gather(1, p), max=N)
+    rows = torch.arange(NB, device=dev)
+    vis = torch.zeros((NB, N + 1), dtype=torch.bool, device=dev)
+    vis[:, :N] = tvis.reshape(NB, nt * tile)[:, :N]
+    pos = torch.arange(N + 1, device=dev)[None, :]
+
+    def step_from(q):
+        return torch.clamp(q + st[rows, torch.clamp(q, max=N - 1)], max=N)
+
+    e = exits[:, 0]
+    for k in range(1, nt):
+        c = k * tile
+        end = min(c + tile, N)
+        m = e.clone()
+        while True:
+            go = (m < end) & ~vis[rows, m]
+            if not bool(go.any()):
+                break
+            m = torch.where(go, step_from(m), m)
+        met = m < end
+        lim = torch.where(met, m, end)
+        vis &= ~((pos >= c) & (pos < lim[:, None]))
+        q = e
+        while True:
+            go = q < lim
+            if not bool(go.any()):
+                break
+            vis[rows, torch.where(go, q, N)] = True
+            q = torch.where(go, step_from(q), q)
+        e = torch.where(met, exits[:, k], m)
+    return vis[:, :N]
 
 
 def reach_walk(step: torch.Tensor) -> torch.Tensor:
@@ -624,7 +720,10 @@ def reach_walk(step: torch.Tensor) -> torch.Tensor:
     p + step[p] from p = 0 while p < N. step [NB, N] int32 (a step below 1
     counts as 1) -> [NB, N] int32, 1 at every position the chain visits.
     A CPU tensor runs the pointer doubling (_reach_doubling), a CUDA
-    tensor the kernel csrc/reach_walk.cu (one thread per row)."""
+    tensor the kernels of csrc/reach_walk.cu: a CUDA block a tile of
+    REACH_TILE positions of a row, walked in shared memory from its start,
+    then a warp a row stitching the tiles (reach_tiles_plain is their
+    twin). Every position of the output is written by the kernels."""
     if step.device.type == "cpu":
         return _reach_doubling(torch.clamp(step.to(torch.int64),
                                            min=1)).to(torch.int32)
@@ -633,14 +732,20 @@ def reach_walk(step: torch.Tensor) -> torch.Tensor:
     if step.dtype != torch.int32 or step.dim() != 2 or not step.is_contiguous():
         raise ValueError(f"reach walk: step must be a contiguous [NB, N] "
                          f"int32 tensor, got {step.dtype} {tuple(step.shape)}")
+    tile = REACH_TILE
+    if tile % 32 or not 32 <= tile <= 32768:
+        raise ValueError(f"reach walk: REACH_TILE={tile} is not a multiple "
+                         "of 32 in [32, 32768]")
     NB, N = step.shape
-    out = torch.zeros((NB, N), dtype=torch.int32, device=step.device)
+    out = torch.empty((NB, N), dtype=torch.int32, device=step.device)
+    tile_exit = torch.empty((NB, -(-N // tile)), dtype=torch.int32,
+                            device=step.device)
     from tpz_torch.kernels import _build
 
     with torch.cuda.device(step.device):
         rc = _build.lib().tpz_reach_walk(
-            step.data_ptr(), out.data_ptr(), NB, N,
-            torch.cuda.current_stream().cuda_stream)
+            step.data_ptr(), out.data_ptr(), tile_exit.data_ptr(), NB, N,
+            tile, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"reach walk kernel launch failed: cudaError {rc}")
     reach_walk.launches += 1
@@ -648,7 +753,7 @@ def reach_walk(step: torch.Tensor) -> torch.Tensor:
 
 
 reach_walk.launches = 0
-reach_walk.kernels = ("reach_walk_kernel",)
+reach_walk.kernels = ("reach_tile_walk", "reach_stitch")
 
 
 def greedy_parse(match_len, match_dist, block_len):
