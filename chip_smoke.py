@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the tpz_torch gzip, LZHUF and bzip2 encode and decode
-paths, and of the two parse functions no codec path reaches, on one
+paths, of the two parse functions no codec path reaches, of the
+streaming encode and decode, raw LZSS, the checksums and the CLI, on one
 NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -171,11 +172,47 @@ Phases (each prints one line; any failure raises and exits non-zero):
               one warm gzip encode call of the headline batch under
               torch.profiler (as phase 12; the trace must hold the parse
               walk's kernel)
+ 22. stream-encode
+              api.CodecStream on the card: gzip on phase 4's first 16 MiB
+              buffer in 1 MiB writes (Action.RUN, then FINISH) equals
+              api.compress and the oracle's body; flushed every 4 MiB, it
+              equals the header, the oracle's sync-flushed segments, its
+              final segment and the trailer, and stdlib gzip reads it;
+              zlib and deflate the same at 1 MiB; each stream launches the
+              v3 parse walk exactly once (counts set to 0 just before it);
+              both gzip streams timed (warm median of 3, MB/s); a bzip2
+              stream flushed once is two streams that bz2 reads; an lh5
+              flush raises DataError
+ 23. stream-decode
+              api.DecodeStream (on the host, as the reference's) in 64 KiB
+              writes on phase 4's gzip blob, a two-member gzip, a stdlib
+              zlib stream, phase 14's level-9 bzip2 blob and phase 10's
+              lh5 blob: each output equals its input, half of each blob
+              raises UnexpectedEof; MB/s each
+ 24. lzss     formats() equals the reference's list; 16 MiB of raw LZSS
+              through api.compress / decompress on "cuda" (the codec runs
+              on the host): bytes equal to the oracle's, the round trip
+              exact; MB/s both ways
+ 25. checksums
+              the CRC lane kernel against its plain version, exactly (the
+              chunk registers and the combined one), on 1 MiB of
+              corpus.mixed and corpus.repetitive, on 1, 3, 4,097 bytes and
+              16 MiB + 5, both variants, and on a view 3 bytes off a
+              16-byte boundary at each chunk length of CRC_CHUNKS; crc32
+              equals zlib (reflected) and the oracle (msb), adler32 zlib,
+              crc32_combine the CRC of the concatenation; crc32 of 16 MiB
+              on the card (its count set to 0 just before) launches the
+              kernel once; the kernel timed at 16 MiB at each chunk length
+              beside its plain version and its bound
+ 26. cli      python -m tpz_torch selftest -n 1048576 --device cuda as a
+              subprocess (every format OK), then compress / decompress
+              file round trips at gzip and lh5
 The last phase line gives the script's seconds so far. A JSON record of
 the kernels (launches from each one's main-path call:
 gzip encode, gzip decode, lh5 encode, lh5 decode, bzip2 decode, the
-public functions of #8 and #9, bzip2 encode; times and bounds at the
-headline shapes) comes before the card's name and power limit; the last
+public functions of #8 and #9, bzip2 encode, checksums.crc32; times and
+bounds at the headline shapes) comes before the card's name and power
+limit; the last
 line is {"ok": true, "device": {...}}. Needs the repository checkout
 around it.
 """
@@ -188,6 +225,7 @@ import json
 import multiprocessing
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -251,6 +289,16 @@ OPS_MTF_ENCODE = 4         # MTF: a symbol's load, rank lookup, write at
                            # the front and store of its rank
 OPS_MTF_MOVE = 1           # both: each list entry moved
 BZIP2_LEVEL = 9
+# The streaming phases: CodecStream writes of STREAM_RUN bytes (each an
+# Action.RUN, FLUSH or FINISH), a gzip flush every STREAM_FLUSH bytes, and
+# DecodeStream writes of STREAM_PIECE bytes.
+STREAM_RUN = MIB
+STREAM_FLUSH = 4 * MIB
+STREAM_PIECE = 64 * 1024
+# crc32_lanes: the operations counted for its bound are its byte-table
+# loads, one a byte; its chunk lengths timed at 16 MiB.
+OPS_CRC_BYTE = 1
+CRC_CHUNKS = (128, 256, 1024, 4096)
 # The iBWT's candidate splitter strides around the decode's own
 # (ibwt_walk.IBWT_SEG), timed at the headline; ibwt_stride.py times a
 # wider range.
@@ -2056,6 +2104,346 @@ def phase_parse_kernels_8_9(headline, small):
              **v3w_bound}, c9["v3w"])
 
 
+def stream_encode(fmt, data, run, flush_every=0):
+    """data through a CodecStream on the card in writes of `run` bytes:
+    Action.FLUSH after every `flush_every` bytes (0: never), FINISH with
+    the last write, RUN otherwise. Returns the stream's bytes."""
+    from tpz_torch import api
+    from tpz_torch.action import Action
+
+    s = api.CodecStream(fmt, LEVEL, device="cuda")
+    out = []
+    for i in range(0, len(data), run):
+        end = min(i + run, len(data))
+        if end == len(data):
+            action = Action.FINISH
+        elif flush_every and end % flush_every == 0:
+            action = Action.FLUSH
+        else:
+            action = Action.RUN
+        out.append(s.drive(data[i:end], action))
+    return b"".join(out)
+
+
+def stream_expected(fmt, data, flush_every):
+    """The oracle's bytes of a stream flushed every `flush_every` bytes:
+    the header once, a sync-flushed segment a flush, the last segment's
+    final blocks, the trailer over all the data."""
+    from tpz_torch import oracle
+    from tpz_torch.codecs import gzip_codec, zlib_codec
+    from tpz_torch.codecs.deflate import DeflateConfig
+
+    params = DeflateConfig(LEVEL).params_array()
+    cuts = list(range(flush_every, len(data), flush_every))
+    segs = [data[a:b] for a, b in zip([0, *cuts], cuts)]
+    body = b"".join(oracle.deflate_encode_flush(seg, params) for seg in segs)
+    body += oracle.deflate_encode(data[cuts[-1] if cuts else 0:], params)
+    if fmt == "gzip":
+        return gzip_codec.header_bytes(LEVEL) + body + gzip_codec._trailer(
+            data)
+    if fmt == "zlib":
+        return zlib_codec.header_bytes(LEVEL) + body + struct.pack(
+            ">I", zlib.adler32(data))
+    return body
+
+
+def check_unflushed(fmt, data, blob):
+    """A stream finished without a flush is api.compress's bytes on the
+    card, whose body is the oracle's."""
+    from tpz_torch import api, oracle
+    from tpz_torch.codecs import gzip_codec
+    from tpz_torch.codecs.deflate import DeflateConfig
+
+    if blob != api.compress(data, fmt, LEVEL, device="cuda"):
+        raise RuntimeError(f"stream-encode {fmt}: differs from api.compress")
+    body = {"gzip": lambda b: b[gzip_codec.parse_header_extra(b, 0)[0]:-8],
+            "zlib": lambda b: b[2:-4], "deflate": lambda b: b}[fmt](blob)
+    params = DeflateConfig(LEVEL).params_array()
+    if body != oracle.deflate_encode(data, params):
+        raise RuntimeError(f"stream-encode {fmt}: body differs from oracle")
+
+
+def phase_stream_encode(data, smi) -> None:
+    """CodecStream on the card: gzip at 16 MiB in 1 MiB writes, unflushed
+    and flushed every 4 MiB; zlib and deflate the same at 1 MiB; each
+    finish() launches #1 once. A bzip2 flush gives two streams, an lh5
+    flush raises."""
+    from tpz_torch import api
+    from tpz_torch.errors import DataError
+    from tpz_torch.kernels import parse
+
+    plain = {"gzip": gzip.decompress, "zlib": zlib.decompress,
+             "deflate": lambda b: zlib.decompress(b, -15)}
+    for fmt, d, run, every in (("gzip", data, STREAM_RUN, STREAM_FLUSH),
+                               ("zlib", data[:MIB], MIB // 4, MIB // 2),
+                               ("deflate", data[:MIB], MIB // 4, MIB // 2)):
+        for flush in (0, every):
+            blob, dt, c = drive("stream-encode", f"{fmt}-flush-{flush}",
+                                lambda: stream_encode(fmt, d, run, flush),
+                                {"parse": parse.parse_extend_v3})
+            if c["parse"] != 1:
+                raise RuntimeError(f"stream-encode {fmt}: #1 launched "
+                                   f"{c['parse']} times, not once")
+            if flush:
+                if blob != stream_expected(fmt, d, flush):
+                    raise RuntimeError(f"stream-encode {fmt}: flushed "
+                                       "stream differs from the oracle's")
+            else:
+                check_unflushed(fmt, d, blob)
+            if plain[fmt](blob) != d:
+                raise RuntimeError(f"stream-encode {fmt}: stdlib round "
+                                   "trip failed")
+            log("stream-encode", format=fmt, bytes=len(d), run=run,
+                flush_every=flush, out_bytes=len(blob),
+                parse_launches=c["parse"], cold_s=f"{dt:.3f}",
+                oracle_identical=True)
+    for flush in (0, STREAM_FLUSH):
+        median, times = warm_median(lambda _: stream_encode(
+            "gzip", data, STREAM_RUN, flush), range(TIMING_ITERS))
+        log("stream-encode", format="gzip", flush_every=flush,
+            mb_per_s=f"{len(data) / median / 1e6:.2f}",
+            median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
+            card=f"'{smi}'")
+    half = data[:MIB // 2]
+    s = api.CodecStream("bzip2", BZIP2_LEVEL, device="cuda")
+    s.write(half)
+    first = s.flush()
+    s.write(data[MIB // 2:MIB])
+    blob = first + s.finish()
+    if (bz2.decompress(first) != half or bz2.decompress(blob) != data[:MIB]
+            or blob[len(first):len(first) + 3] != b"BZh"):
+        raise RuntimeError("stream-encode bzip2: flushed stream is not two "
+                           "streams that bz2 reads")
+    s = api.CodecStream("lh5", device="cuda")
+    s.write(half)
+    try:
+        s.flush()
+    except DataError as e:
+        lh5 = f"'DataError: {e}'"
+    else:
+        raise RuntimeError("stream-encode lh5: flush did not raise")
+    log("stream-encode", format="bzip2", streams=2, bz2_reads=True,
+        lh5_flush=lh5)
+
+
+def decode_stream(fmt, blob):
+    from tpz_torch import api
+
+    s = api.DecodeStream(fmt)
+    out = [s.write(blob[i:i + STREAM_PIECE])
+           for i in range(0, len(blob), STREAM_PIECE)]
+    out.append(s.finish())
+    return b"".join(out)
+
+
+def phase_stream_decode(cases, smi) -> None:
+    """DecodeStream (on the host, as the reference's) on each blob in
+    64 KiB writes; a truncated blob raises UnexpectedEof."""
+    from tpz_torch.errors import UnexpectedEof
+
+    for name, fmt, blob, want in cases:
+        t0 = time.perf_counter()
+        got = decode_stream(fmt, blob)
+        dt = time.perf_counter() - t0
+        if got != want:
+            raise RuntimeError(f"stream-decode {name}: output differs")
+        try:
+            decode_stream(fmt, blob[:len(blob) // 2])
+        except UnexpectedEof as e:
+            truncated = f"'UnexpectedEof: {e}'"
+        else:
+            raise RuntimeError(f"stream-decode {name}: truncated blob "
+                               "decoded")
+        log("stream-decode", input=name, format=fmt, bytes=len(want),
+            piece=STREAM_PIECE, mb_per_s=f"{len(want) / dt / 1e6:.2f}",
+            seconds=f"{dt:.4f}", truncated=truncated, route="host",
+            card=f"'{smi}'")
+
+
+def phase_lzss(data) -> None:
+    """formats(), and 16 MiB of raw LZSS through the api on "cuda" (the
+    codec runs on the host, as the reference's does)."""
+    from tpz_torch import api, oracle
+    from tpz_torch.codecs.lzss import LzssConfig
+
+    want = ["bzip2", "deflate", "gzip", "lh4", "lh5", "lh6", "lh7", "lzss",
+            "zlib"]
+    if api.formats() != want:
+        raise RuntimeError(f"formats() is {api.formats()}")
+    t0 = time.perf_counter()
+    blob = api.compress(data, "lzss", device="cuda")
+    t1 = time.perf_counter()
+    back = api.decompress(blob, "lzss", device="cuda")
+    t2 = time.perf_counter()
+    ref = len(data).to_bytes(8, "little") + oracle.lzss_pack(
+        oracle.lzss_tokenize(data, LzssConfig().params_array()))
+    if blob != ref or back != data:
+        raise RuntimeError("lzss: bytes differ from the oracle's or the "
+                           "round trip failed")
+    log("lzss", formats=",".join(api.formats()), bytes=len(data),
+        ratio=f"{len(blob) / len(data):.4f}",
+        encode_mb_per_s=f"{len(data) / (t1 - t0) / 1e6:.2f}",
+        decode_mb_per_s=f"{len(data) / (t2 - t1) / 1e6:.2f}", route="host",
+        oracle_identical=True)
+
+
+def compare_crc(t, variant, chunk=None):
+    """crc32_lanes against its plain version on the same CUDA tensor:
+    (max abs difference of the chunk registers and the combined one, which
+    must be 0; the kernel's result)."""
+    from tpz_torch.kernels import checksums as ck
+
+    kw = {} if chunk is None else {"chunk": chunk}
+    before = ck.crc32_lanes.launches
+    regs, reg = ck.crc32_lanes(t, variant, **kw)
+    if ck.crc32_lanes.launches != before + 1:
+        raise RuntimeError("crc32 lanes wrapper did not launch its kernel")
+    pregs, preg = ck.crc32_lanes_plain(t, variant, **kw)
+    err = max(int((regs - pregs).abs().max()) if regs.numel() else 0,
+              int((reg - preg).abs()))
+    if err:
+        raise RuntimeError(f"crc32 lanes kernel disagrees with plain "
+                           f"({variant}, chunk {chunk}): {err}")
+    return err, (regs, reg)
+
+
+def crc_chunk_pass_ms(t, chunk, reps=20):
+    """The chunk pass of crc32_lanes alone (its C entry launched `reps`
+    times on prepared buffers, no fold, no wrapper): ms a launch."""
+    from tpz_torch.kernels import _build
+    from tpz_torch.kernels import checksums as ck
+
+    L = -(-t.numel() // chunk)
+    tab, _ = ck._device_tables("reflected", chunk, ck._n_levels(L),
+                               str(t.device))
+    regs = torch.empty(L, dtype=torch.int64, device=t.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.lib()
+
+    def run():
+        for _ in range(reps):
+            rc = lib.tpz_crc32_lanes(t.data_ptr(), t.numel(), chunk, 0,
+                                     tab.data_ptr(), regs.data_ptr(), None,
+                                     0, None, None, 0, stream)
+            if rc:
+                raise RuntimeError(f"crc32_chunks launch failed: {rc}")
+
+    run()
+    return timed(run)[1] / reps
+
+
+def phase_checksums(small, data, smi):
+    """The CRC lane kernel against its plain version, exactly; crc32,
+    adler32 and crc32_combine against zlib and the oracle; the kernel's
+    main-path launch (crc32 of 16 MiB on the card) and its times."""
+    from tpz_torch import oracle
+    from tpz_torch.kernels import checksums as ck
+
+    big = data + data[:5]
+    dev = torch.frombuffer(bytearray(big), dtype=torch.uint8).cuda()
+    cases = {"mixed-1MiB": small["mixed"],
+             "repetitive-1MiB": small["repetitive"]}
+    worst = 0
+    for name, d in cases.items():
+        t = torch.frombuffer(bytearray(d), dtype=torch.uint8).cuda()
+        for variant in ck.VARIANTS:
+            err, _ = compare_crc(t, variant)
+            worst = max(worst, err)
+    for n in (1, 3, 4097, len(big)):
+        for variant in ck.VARIANTS:
+            err, _ = compare_crc(dev[:n], variant)
+            worst = max(worst, err)
+    # A view that starts off a 16-byte boundary, and other chunk lengths.
+    for chunk in CRC_CHUNKS:
+        err, _ = compare_crc(dev[3:3 + MIB], "reflected", chunk)
+        worst = max(worst, err)
+    log("checksums", cases="mixed-1MiB,repetitive-1MiB,1,3,4097,16MiB+5,"
+        "offset-3", variants=",".join(ck.VARIANTS), chunks=CRC_CHUNKS,
+        max_abs_err=worst)
+    a, b = small["mixed"], data[:4097]
+    checks = {
+        "crc32-reflected": (ck.crc32(data, "reflected", device="cuda"),
+                            zlib.crc32(data)),
+        "crc32-msb": (ck.crc32(data, "msb", device="cuda"),
+                      oracle.crc32_msb(data) ^ 0xFFFFFFFF),
+        "adler32": (ck.adler32(data, device="cuda"), zlib.adler32(data)),
+        "crc32-combine": (ck.crc32_combine(
+            ck.crc32(a, device="cuda"), ck.crc32(b, device="cuda"), len(b)),
+            zlib.crc32(a + b)),
+    }
+    for name, (got, want) in checks.items():
+        if got != want:
+            raise RuntimeError(f"checksums {name}: {got:#x} != {want:#x}")
+    # The main path: crc32 of 16 MiB on the card, counted alone.
+    _, _, c = drive("checksums", "crc32-16MiB", lambda: ck.crc32(
+        data, "reflected", device="cuda"), {"crc": ck.crc32_lanes})
+    launches = c["crc"]
+    t = dev[:len(data)]
+    ck.crc32_lanes(t, "reflected")
+    times, alone = {}, {}
+    for chunk in CRC_CHUNKS:
+        ck.crc32_lanes(t, "reflected", chunk)  # host tables, warm
+        _, times[chunk] = timed(lambda: ck.crc32_lanes(t, "reflected",
+                                                        chunk), 5)
+        alone[chunk] = crc_chunk_pass_ms(t, chunk)
+    ms = times[ck.CRC_CHUNK]
+    _, plain_ms = timed(lambda: ck.crc32_lanes_plain(t, "reflected"))
+    b = bound_bytes_ops(len(data), len(data) * OPS_CRC_BYTE)
+    log("checksums", bytes=len(data), launches=launches,
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+        bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+        ms_by_chunk={k: round(v, 4) for k, v in times.items()},
+        chunk_pass_ms_by_chunk={k: round(v, 4) for k, v in alone.items()},
+        oracle_identical=True, card=f"'{smi}'")
+    return launches, {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                      **b}
+
+
+def phase_cli() -> None:
+    """python -m tpz_torch as a subprocess on the card: selftest of every
+    format at 1 MiB, then compress / decompress file round trips."""
+    from tpz_torch import REPO_ROOT, api
+    from tpz_torch.utils import corpus
+
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+
+    def run(*args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "tpz_torch", *args],
+                           capture_output=True, text=True, cwd=REPO_ROOT,
+                           env=env, timeout=600)
+        if r.returncode:
+            raise RuntimeError(f"cli {args}: exit {r.returncode}\n"
+                               f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+        return r, time.perf_counter() - t0
+
+    r, dt = run("selftest", "-n", str(MIB), "--device", "cuda")
+    lines = r.stdout.strip().splitlines()
+    if ([ln.split()[0] for ln in lines] != api.formats()
+            or any(ln.split()[1] != "OK" for ln in lines)):
+        raise RuntimeError(f"cli selftest:\n{r.stdout}")
+    log("cli", cmd="selftest", bytes=MIB, formats=len(lines), all_ok=True,
+        seconds=f"{dt:.1f}")
+    build = os.path.join(REPO_ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        src = os.path.join(tmp, "doc.txt")
+        data = corpus.text(MIB, seed=61)
+        for fmt, suffix in (("gzip", ".gz"), ("lh5", ".lh5")):
+            with open(src, "wb") as f:
+                f.write(data)
+            _, enc_s = run("compress", src, "-f", fmt, "--device", "cuda")
+            os.remove(src)
+            r, dec_s = run("decompress", src + suffix, "-f", fmt,
+                           "--device", "cuda")
+            with open(src, "rb") as f:
+                if f.read() != data:
+                    raise RuntimeError(f"cli {fmt}: round trip failed")
+            log("cli", cmd="compress+decompress", format=fmt, bytes=MIB,
+                stats=r.stderr.strip().splitlines()[-1].replace(" ", ""),
+                seconds=f"{enc_s + dec_s:.1f}")
+
+
 def main() -> int:
     import tpz_torch  # noqa: F401 — fails at once outside a checkout
     from tpz_torch.utils import corpus
@@ -2088,6 +2476,7 @@ def main() -> int:
     lz_blobs, lz = phase_lzhuf_slice(batches[0], small["mixed"])
     phase_lzhuf_timing(batches[1:], batches[0], lz_blobs, smi)
     phase_lzhuf_profile(batches[0], lz_blobs)
+    lz_blob = lz_blobs[0]
     del lz_blobs
     bz_blobs, stdlib_blob, cat, small_bz, long_bz = bzip2_inputs(batches[0])
     bz_walk, bz_ibwt = phase_bzip2_kernels(small_bz, long_bz, bz_blobs)
@@ -2095,16 +2484,30 @@ def main() -> int:
     phase_bzip2_timing(batches[0], bz_blobs, smi)
     mtf_row = phase_bzip2_encode_kernels(batches[0])
     mtf_n = phase_bzip2_encode_slice(batches[0], bz_blobs)
+    bz_blob = bz_blobs[0]
     del bz_blobs
     phase_bzip2_encode_timing(batches[1:], smi)
     reach, reach_n, v3w, v3w_n = phase_parse_kernels_8_9(batches[0], small)
     phase_decode_profile(blobs)
     phase_encode_profile(batches[0])
+    data, other = batches[0]
+    phase_stream_encode(data, smi)
+    phase_stream_decode([
+        ("gzip-16MiB", "gzip", blobs[0], data),
+        ("gzip-two-members", "gzip", blobs[1] + gzip.compress(small["mixed"]),
+         other + small["mixed"]),
+        ("stdlib-zlib-16MiB", "zlib", zlib.compress(other, 6), other),
+        ("bzip2-l9-16MiB", "bzip2", bz_blob, data),
+        ("lh5-16MiB", "lh5", lz_blob, data)], smi)
+    phase_lzss(data)
+    crc_n, crc_row = phase_checksums(small, data, smi)
+    phase_cli()
     log("total", script_s=f"{time.perf_counter() - start:.1f}")
     # Each kernel's launches come from its own main-path call: gzip encode
     # (#1), gzip decode (#2, #3), lh5 encode (#4), lh5 decode (#5), bzip2
     # decode (#6, #7), the public functions greedy_parse (#8) and
-    # parse_extend_v3w (#9), bzip2 encode (the MTF encode).
+    # parse_extend_v3w (#9), bzip2 encode (the MTF encode), and
+    # checksums.crc32 on the card (the CRC lanes).
     rows = [("parse_walk_v3", "parse_walk.cu", "tpz/kernels/parse.py:464",
              launches, kern),
             ("symbol_walk", "symbol_walk.cu",
@@ -2124,8 +2527,11 @@ def main() -> int:
             ("parse_walk_v3w", "parse_walk.cu", "tpz/kernels/parse.py:211",
              v3w_n, v3w),
             ("mtf_encode", "mtf_encode.cu", "tpz/kernels/mtf.py:36", mtf_n,
-             mtf_row)]
-    # None of these walks has one PyTorch call that computes its function.
+             mtf_row),
+            ("crc32_lanes", "crc32_lanes.cu",
+             "tpz/kernels/checksums.py:104", crc_n, crc_row)]
+    # None of these functions has one PyTorch call that computes it (torch
+    # has no CRC).
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"tpz_torch/csrc/{src}",
         "replaces": where, "launches": n, "max_abs_err": k["max_abs_err"],

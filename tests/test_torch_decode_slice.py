@@ -227,8 +227,8 @@ def test_cuda_request_without_card_raises():
 
 
 def test_unknown_format_raises():
-    with pytest.raises(ValueError, match="lzss"):
-        api.decompress(b"abc", "lzss", device="cpu")
+    with pytest.raises(ValueError, match="lz77"):
+        api.decompress(b"abc", "lz77", device="cpu")
 
 
 def test_tz_sidecar_bounds_checked(no_declines):

@@ -118,10 +118,10 @@ def test_cuda_request_without_card_raises():
 
 
 def test_unknown_format_raises():
-    """A format the port does not encode (bzip2 was one until it was
-    ported; raw LZSS still is) raises and names it."""
-    with pytest.raises(ValueError, match="unsupported format 'lzss'"):
-        api.compress(b"abc", "lzss", device="cpu")
+    """A format the port does not know raises and names it, with the
+    reference's message."""
+    with pytest.raises(ValueError, match="unknown format 'lz77'"):
+        api.compress(b"abc", "lz77", device="cpu")
 
 
 def test_oversized_single_buffer_raises(monkeypatch):

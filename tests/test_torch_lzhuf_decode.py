@@ -19,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+import tpz.api as japi
 import tpz.oracle as joracle
+from tpz.codecs import lzhuf as jlzhuf
 from tpz.kernels import lzhuf_walk as jlw
 from tpz_torch import api, errors, oracle
 from tpz_torch import constants as C
@@ -265,3 +267,59 @@ def test_walk_rejects_unsupported_device():
     z = torch.zeros((1, 3), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         lw.lzhuf_walk(z, z[:, 0], z[:, 0], z[:, 0], z)
+
+
+def _bad_method_blobs():
+    good = api.compress(b"tpz lzhuf container", "lh5", device="cpu")
+    return {"lh9": good[:4] + b"lh9" + good[7:],
+            "non-utf8": good[:4] + b"\xff\xfe5" + good[7:]}
+
+
+F4_CALLS = {
+    "decompress": (lambda b: lzhuf.decompress(b, device="cpu"),
+                   lambda b: jlzhuf.decompress(b)),
+    "decompress_many": (lambda b: lzhuf.decompress_many([b], device="cpu"),
+                        lambda b: jlzhuf.decompress_many([b])),
+    "api-lh5": (lambda b: api.decompress(b, "lh5", device="cpu"),
+                lambda b: japi.decompress(b, "lh5")),
+    "stream-lh5": (lambda b: _stream(api.DecodeStream("lh5"), b),
+                   lambda b: _stream(japi.DecodeStream("lh5"), b)),
+}
+# R9: the reference raises an error that is no CompressionError for these
+# (ValueError from _dict_bits, UnicodeDecodeError from the method bytes);
+# the port raises DataError. None where both raise the same DataError.
+F4_REFERENCE = {
+    ("lh9", "decompress"): ValueError,
+    ("lh9", "decompress_many"): ValueError,
+    ("lh9", "api-lh5"): None,
+    ("lh9", "stream-lh5"): None,
+    ("non-utf8", "decompress"): UnicodeDecodeError,
+    ("non-utf8", "decompress_many"): UnicodeDecodeError,
+    ("non-utf8", "api-lh5"): UnicodeDecodeError,
+    ("non-utf8", "stream-lh5"): UnicodeDecodeError,
+}
+
+
+def _stream(s, blob):
+    s.write(blob)
+    return s.finish()
+
+
+@pytest.mark.parametrize("kind,call", sorted(F4_REFERENCE))
+def test_bad_method_field_raises_data_error(kind, call):
+    """F4 / R9: an unknown method ("lh9") or non-UTF-8 method bytes in the
+    container. The port raises DataError in every entry point; the
+    reference raises the errors F4_REFERENCE records."""
+    blob = _bad_method_blobs()[kind]
+    mine, ref = F4_CALLS[call]
+    with pytest.raises(errors.DataError) as got:
+        mine(blob)
+    want = F4_REFERENCE[(kind, call)]
+    with pytest.raises(Exception) as ref_got:
+        ref(blob)
+    if want is None:
+        assert type(ref_got.value).__name__ == "DataError"
+        assert str(ref_got.value) == str(got.value)
+    else:
+        assert type(ref_got.value) is want
+        assert not isinstance(ref_got.value, errors.CompressionError)

@@ -24,7 +24,7 @@ import torch
 from test_torch_bzip2_walk import WALK_CASES, _walked
 from tpz.kernels import bzip2_walk as jbw
 from tpz.kernels import mtf as jmtf
-from tpz_torch.kernels import _build, bzip2_walk as bw, ibwt_walk
+from tpz_torch.kernels import _build, bzip2_walk as bw, checksums, ibwt_walk
 from tpz_torch.kernels import inflate_pipeline, lzhuf_walk, mtf, parse
 from tpz_torch.kernels import resolve_walk
 
@@ -207,7 +207,7 @@ def test_each_wrappers_kernels_are_kernels_of_its_sources():
                 inflate_pipeline.symbol_walk, lzhuf_walk.lzhuf_walk,
                 resolve_walk.resolve_copy_machine, parse.parse_extend_v3,
                 parse.parse_extend_v1, parse.parse_extend_v3w,
-                parse.reach_walk)
+                parse.reach_walk, checksums.crc32_lanes)
     listed = [k for w in wrappers for k in w.kernels]
     assert sorted(listed) == sorted(declared)
     assert any(h.endswith("mtf_list.cuh") for h in headers)

@@ -1,5 +1,6 @@
 """The port keeps its own copies of the reference package's jax-free
-files (tpz_torch/constants.py, errors.py, utils/corpus.py) and writes the
+files (tpz_torch/constants.py, errors.py, action.py, utils/corpus.py) and
+writes the
 C++ oracle's generated_constants.h from its own constants. These tests
 hold the copies equal to the reference's, the header byte-equal to the
 one the reference generator writes, and show in a fresh interpreter that
@@ -15,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+import tpz.action as jaction
 import tpz.constants as jconstants
 import tpz.errors as jerrors
 from tpz.utils import corpus as jcorpus
 from tpz_torch import REPO_ROOT, api, oracle
-from tpz_torch import constants, errors
+from tpz_torch import action, constants, errors
+from tpz_torch.kernels import checksums
 from tpz_torch.utils import corpus
 
 
@@ -56,6 +59,11 @@ def test_errors_equal_the_reference():
         assert raised[0] == raised[1], status
 
 
+def test_action_equals_the_reference():
+    assert [(a.name, a.value) for a in action.Action] == [
+        (a.name, a.value) for a in jaction.Action]
+
+
 @pytest.mark.parametrize("seed", [0, 1, 7])
 @pytest.mark.parametrize("kind", ["text", "mixed", "repetitive",
                                   "random_bytes"])
@@ -77,11 +85,13 @@ def test_generated_header_equals_the_reference_generators(tmp_path):
 
 
 def test_port_loads_nothing_from_the_reference_package():
-    """A fresh interpreter imports the port's api, its bzip2 modules (both
-    directions) and its parse walks, builds and loads its oracle, encodes
-    and decodes LZHUF and bzip2 on the CPU and runs the greedy parse and
-    the v3w walk: jax stays unloaded and no loaded module's file lies
-    under tpz/."""
+    """A fresh interpreter imports the port's api (its streaming classes
+    too), its bzip2 modules (both directions), its parse walks, raw LZSS,
+    the checksums and the CLI, builds and loads its oracle, encodes and
+    decodes LZHUF, bzip2 (whole and streamed), raw LZSS and a gzip stream
+    on the CPU, takes both checksums, and runs the greedy parse and the
+    v3w walk: jax stays unloaded and no loaded module's file lies under
+    tpz/."""
     oracle.build()  # so the child only loads it
     code = (
         "import bz2, json, os, sys\n"
@@ -91,9 +101,23 @@ def test_port_loads_nothing_from_the_reference_package():
         "import tpz_torch.kernels.bzip2_walk, tpz_torch.kernels.ibwt_walk\n"
         "import tpz_torch.kernels.bwt, tpz_torch.kernels.mtf\n"
         "import tpz_torch.kernels.rle, tpz_torch.kernels.bzip2_plan_device\n"
-        "from tpz_torch.kernels import parse\n"
+        "from tpz_torch.kernels import checksums, parse\n"
+        "import tpz_torch.__main__, tpz_torch.codecs.lzss\n"
         "from tpz_torch import REPO_ROOT, oracle\n"
+        "from tpz_torch.action import Action\n"
+        "import gzip, zlib\n"
         "oracle.lib()\n"
+        "d = b'tpz stream ' * 2000\n"
+        "s = api.CodecStream('bzip2', device='cpu')\n"
+        "blob = s.drive(d, Action.FLUSH) + s.drive(d, Action.FINISH)\n"
+        "s = api.DecodeStream('bzip2')\n"
+        "assert s.write(blob) + s.finish() == d + d\n"
+        "s = api.DecodeStream('gzip')\n"
+        "assert s.write(gzip.compress(d)) + s.finish() == d\n"
+        "blob = api.compress(d, 'lzss', device='cpu')\n"
+        "assert api.decompress(blob, 'lzss', device='cpu') == d\n"
+        "assert checksums.crc32(d, device='cpu') == zlib.crc32(d)\n"
+        "assert checksums.adler32(d, device='cpu') == zlib.adler32(d)\n"
         "blob = api.compress(b'abc' * 100, 'lh5', device='cpu')\n"
         "assert api.decompress(blob, 'lh5', device='cpu') == b'abc' * 100\n"
         "bz = bz2.compress(b'tpz bzip2', 1)\n"
@@ -127,9 +151,14 @@ def test_port_loads_nothing_from_the_reference_package():
     lambda: api.decompress_many([b"BZh9"], "bzip2"),
     lambda: api.compress(b"abc", "bzip2"),
     lambda: api.compress_many([b"abc"], "bzip2"),
+    lambda: api.compress(b"abc", "lzss"),
+    lambda: api.CodecStream("gzip"),
+    lambda: checksums.crc32(b"abc"),
+    lambda: checksums.adler32(b"abc"),
 ], ids=["compress", "compress_many", "decompress", "decompress_many",
         "bzip2-decompress", "bzip2-decompress_many", "bzip2-compress",
-        "bzip2-compress_many"])
+        "bzip2-compress_many", "lzss-compress", "codec-stream", "crc32",
+        "adler32"])
 def test_entry_points_default_to_the_card(call):
     """The entry points run on the card unless the caller asks for the
     CPU; with no card they raise instead of running elsewhere."""

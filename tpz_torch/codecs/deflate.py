@@ -95,6 +95,16 @@ def compress_many(datas, level: int = 6, *, device="cuda",
     return deflate_pipeline.compress_many(list(datas), cfg, device)
 
 
+def compress_flush(data: bytes, level: int = 6,
+                   config: DeflateConfig | None = None) -> bytes:
+    """An Action::Flush segment: no BFINAL anywhere, then a sync-flush
+    empty stored block. Segments from this, then one `compress` segment,
+    concatenate into one valid stream. The oracle encodes it, as in the
+    reference (its parse equals the device encoder's)."""
+    cfg = config or DeflateConfig(level=level)
+    return oracle.deflate_encode_flush(data, cfg.params_array())
+
+
 def decompress(data: bytes, *, device="cuda") -> bytes:
     plain, consumed = decompress_prefix(data, device=device)
     if consumed != len(data):

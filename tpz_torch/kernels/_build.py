@@ -105,5 +105,9 @@ def lib() -> ctypes.CDLL:
         L.tpz_parse_v3w_walk.argtypes = [vp] * 6 + [ci] * 10 + [vp]
         L.tpz_mtf_encode.restype = ci
         L.tpz_mtf_encode.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+        ll = ctypes.c_longlong
+        L.tpz_crc32_lanes.restype = ci
+        L.tpz_crc32_lanes.argtypes = [vp, ll, ci, ci, vp, vp, vp, ll, vp, vp,
+                                      ci, vp]
         _LIB = L
     return _LIB

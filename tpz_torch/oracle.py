@@ -176,6 +176,40 @@ def lib() -> ctypes.CDLL:
             u32p, i32p]
         L.tpz_bwt_ref.restype = ctypes.c_uint32
         L.tpz_bwt_ref.argtypes = [u8p, ctypes.c_size_t, u8p]
+        for name in ("crc32_reflected", "crc32_msb", "adler32"):
+            fn = getattr(L, f"tpz_{name}")
+            fn.restype = ctypes.c_uint32
+            fn.argtypes = [u8p, ctypes.c_size_t, ctypes.c_uint32]
+        L.tpz_lzss_tokenize.restype = ctypes.c_int
+        L.tpz_lzss_tokenize.argtypes = [u8p, ctypes.c_size_t, i32p, i32p, szp]
+        L.tpz_lzss_pack.restype = ctypes.c_int
+        L.tpz_lzss_pack.argtypes = [
+            i32p, ctypes.c_size_t, ctypes.c_int32, u8p, szp]
+        L.tpz_lzss_unpack.restype = ctypes.c_int
+        L.tpz_lzss_unpack.argtypes = [
+            u8p, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int32, u8p, szp]
+        L.tpz_deflate_encode_flush.restype = ctypes.c_int
+        L.tpz_deflate_encode_flush.argtypes = [
+            u8p, ctypes.c_size_t, i32p, u8p, szp]
+        vp = ctypes.c_void_p
+        L.tpz_inflate_stream_new.restype = vp
+        L.tpz_inflate_stream_new.argtypes = []
+        L.tpz_inflate_stream_free.restype = None
+        L.tpz_inflate_stream_free.argtypes = [vp]
+        L.tpz_inflate_stream_feed.restype = ctypes.c_int
+        L.tpz_inflate_stream_feed.argtypes = [
+            vp, u8p, ctypes.c_size_t, i32p, i64p, i64p]
+        L.tpz_inflate_stream_take.restype = ctypes.c_int64
+        L.tpz_inflate_stream_take.argtypes = [vp, u8p, ctypes.c_int64]
+        L.tpz_lzhuf_stream_new.restype = vp
+        L.tpz_lzhuf_stream_new.argtypes = [ctypes.c_int32, ctypes.c_uint64]
+        L.tpz_lzhuf_stream_free.restype = None
+        L.tpz_lzhuf_stream_free.argtypes = [vp]
+        L.tpz_lzhuf_stream_feed.restype = ctypes.c_int
+        L.tpz_lzhuf_stream_feed.argtypes = [
+            vp, u8p, ctypes.c_size_t, i32p, i64p]
+        L.tpz_lzhuf_stream_take.restype = ctypes.c_int64
+        L.tpz_lzhuf_stream_take.argtypes = [vp, u8p, ctypes.c_int64]
         _LIB = L
     return _LIB
 
@@ -227,6 +261,22 @@ def deflate_encode(data, params: np.ndarray | None = None) -> bytes:
         _ptr(a, ctypes.c_uint8), a.size, _ptr(p, ctypes.c_int32),
         _ptr(out, ctypes.c_uint8), ctypes.byref(n))
     errors.raise_for_status(st, "deflate_encode")
+    return out[: n.value].tobytes()
+
+
+def deflate_encode_flush(data, params: np.ndarray | None = None) -> bytes:
+    """An Action::Flush segment: every block BFINAL=0, then a Z_SYNC_FLUSH
+    empty stored block, so segments concatenate into one valid stream."""
+    a = _u8(data)
+    p = np.ascontiguousarray(
+        params if params is not None else params_array(), dtype=np.int32)
+    cap = a.size + (a.size >> 3) + 1024
+    out = np.zeros(cap, dtype=np.uint8)
+    n = ctypes.c_size_t(cap)
+    st = lib().tpz_deflate_encode_flush(
+        _ptr(a, ctypes.c_uint8), a.size, _ptr(p, ctypes.c_int32),
+        _ptr(out, ctypes.c_uint8), ctypes.byref(n))
+    errors.raise_for_status(st, "deflate_encode_flush")
     return out[: n.value].tobytes()
 
 
@@ -351,6 +401,80 @@ def inflate(data, max_out: int | None = None) -> tuple[bytes, int]:
         errors.raise_for_status(st, "inflate")
         return out[:n.value].tobytes(), consumed.value
     errors.raise_for_status(errors.STATUS_BUFFER_TOO_SMALL, "inflate: output cap")
+
+
+# ------------------------------------------------------------- checksums
+
+def crc32_reflected(data, state: int = 0xFFFFFFFF) -> int:
+    """The gzip CRC-32 register after `data` from `state` (no final xor)."""
+    a = _u8(data)
+    return int(lib().tpz_crc32_reflected(_ptr(a, ctypes.c_uint8), a.size,
+                                         state))
+
+
+def crc32_msb(data, state: int = 0xFFFFFFFF) -> int:
+    """The bzip2 (MSB-first) CRC-32 register after `data` from `state`."""
+    a = _u8(data)
+    return int(lib().tpz_crc32_msb(_ptr(a, ctypes.c_uint8), a.size, state))
+
+
+def adler32(data, state: int = 1) -> int:
+    a = _u8(data)
+    return int(lib().tpz_adler32(_ptr(a, ctypes.c_uint8), a.size, state))
+
+
+# ------------------------------------------------------------------ LZSS
+
+def lzss_tokenize(data, params: np.ndarray | None = None) -> np.ndarray:
+    """[N, 4] int32 tokens (pos, len, lit, dist); len == 0 is a literal."""
+    a = _u8(data)
+    p = np.ascontiguousarray(
+        params if params is not None else params_array(), dtype=np.int32)
+    cap = max(16, a.size + 16)
+    toks = np.zeros((cap, 4), dtype=np.int32)
+    n = ctypes.c_size_t(cap)
+    st = lib().tpz_lzss_tokenize(
+        _ptr(a, ctypes.c_uint8), a.size, _ptr(p, ctypes.c_int32),
+        _ptr(toks, ctypes.c_int32), ctypes.byref(n))
+    errors.raise_for_status(st, "lzss_tokenize")
+    return toks[: n.value].copy()
+
+
+def lzss_pack(tokens: np.ndarray, min_match: int = 3) -> bytes:
+    """[N, 4] tokens as the raw LZSS tagged-byte stream
+    (codecs/lzss.py)."""
+    toks = np.ascontiguousarray(tokens, dtype=np.int32)
+    ntok = toks.shape[0] if toks.ndim == 2 else 0
+    cap = max(16, 4 * ntok + 16)
+    out = np.zeros(cap, dtype=np.uint8)
+    n = ctypes.c_size_t(cap)
+    st = lib().tpz_lzss_pack(
+        _ptr(toks, ctypes.c_int32), ntok, min_match,
+        _ptr(out, ctypes.c_uint8), ctypes.byref(n))
+    errors.raise_for_status(st, "lzss_pack")
+    return out[: n.value].tobytes()
+
+
+def lzss_unpack(data, orig_size: int, min_match: int = 3) -> bytes:
+    """Decode the raw LZSS tagged-byte stream to `orig_size` bytes.
+
+    A code of 3 input bytes yields at most 255 + min_match, so `data`
+    can yield no more than `most` bytes. A larger `orig_size` must fail
+    as the stream runs out (or on a bad reference first); it is decoded
+    at `most` + 1, which fails the same way, so an untrusted size never
+    sizes the output buffer. (The reference allocates `orig_size` bytes
+    first, and a huge one raises numpy's MemoryError; ROADMAP R10.)"""
+    a = _u8(data)
+    most = a.size * (255 + max(min_match, 0)) // 3
+    n_out = min(orig_size, most + 1)
+    cap = max(16, n_out)
+    out = np.zeros(cap, dtype=np.uint8)
+    n = ctypes.c_size_t(cap)
+    st = lib().tpz_lzss_unpack(
+        _ptr(a, ctypes.c_uint8), a.size, n_out, min_match,
+        _ptr(out, ctypes.c_uint8), ctypes.byref(n))
+    errors.raise_for_status(st, "lzss_unpack")
+    return out[: n.value].tobytes()
 
 
 # ------------------------------------------------------------------ LZHUF
@@ -601,3 +725,75 @@ def bzip2_rle1_inverse(bwt_blob: np.ndarray, offs, lens, crcs) -> bytes:
         _ptr(out, ctypes.c_uint8), ctypes.byref(n))
     errors.raise_for_status(st, "bzip2_rle1_inverse")
     return out[: n.value].tobytes()
+
+
+# ------------------------------------------------------- resumable decoders
+
+class _Stream:
+    """A resumable C++ decoder: feed compressed increments, take the
+    plaintext that became decodable. O(total) across any write pattern."""
+
+    _prefix = ""
+
+    def feed(self, data) -> bytes:
+        if self._h is None:
+            raise RuntimeError(f"{self._prefix} stream closed")
+        a = _u8(data)
+        fin = ctypes.c_int32(0)
+        pending = ctypes.c_int64(0)
+        st = self._feed(a, fin, pending)
+        errors.raise_for_status(st, f"{self._prefix}_stream")
+        self.finished = bool(fin.value)
+        k = int(pending.value)
+        if k == 0:
+            return b""
+        out = np.empty(k, dtype=np.uint8)
+        got = getattr(lib(), f"tpz_{self._prefix}_stream_take")(
+            self._h, _ptr(out, ctypes.c_uint8), k)
+        return out[:got].tobytes()
+
+    def close(self) -> None:
+        if self._h is not None:
+            getattr(lib(), f"tpz_{self._prefix}_stream_free")(self._h)
+            self._h = None
+
+    def __del__(self):  # pragma: no cover - GC timing
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class InflateStream(_Stream):
+    """Resumable raw-DEFLATE decoder (cpp InflateStream). Once `finished`,
+    `consumed` is the input bytes the stream spanned."""
+
+    _prefix = "inflate"
+
+    def __init__(self) -> None:
+        self._h = lib().tpz_inflate_stream_new()
+        self.finished = False
+        self.consumed = 0
+
+    def _feed(self, a, fin, pending):
+        consumed = ctypes.c_int64(0)
+        st = lib().tpz_inflate_stream_feed(
+            self._h, _ptr(a, ctypes.c_uint8), a.size, ctypes.byref(fin),
+            ctypes.byref(consumed), ctypes.byref(pending))
+        self.consumed = int(consumed.value)
+        return st
+
+
+class LzhufStream(_Stream):
+    """Resumable lh4-lh7 decoder (cpp LzhufStream) of `orig_size` bytes."""
+
+    _prefix = "lzhuf"
+
+    def __init__(self, dict_bits: int, orig_size: int) -> None:
+        self._h = lib().tpz_lzhuf_stream_new(dict_bits, orig_size)
+        self.finished = orig_size == 0
+
+    def _feed(self, a, fin, pending):
+        return lib().tpz_lzhuf_stream_feed(
+            self._h, _ptr(a, ctypes.c_uint8), a.size, ctypes.byref(fin),
+            ctypes.byref(pending))
