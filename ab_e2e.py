@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """A parent checkout against this one, in turns on one NVIDIA GPU: the
-end-to-end metrics of the lh5 and bzip2 decode paths, through the LZHUF
+end-to-end metrics of the gzip encode path and of the lh5 and bzip2
+decode paths, through the LZHUF
 token walk (#5) and the inverse BWT (#7), those two wrappers at the
 headline shapes, and the two public functions no codec path reaches, the
 greedy reach walk (#8) and the v3w parse walk (#9).
@@ -12,9 +13,11 @@ Each run is a process of its own on one checkout (its kernels and oracle
 build into that checkout's build/), in the order parent, change, change,
 parent, ... over the same 2 x 16 MiB of corpus.mixed (seeds 1000, 1001,
 as chip_smoke.py) and the same oracle bzip2 level-9 streams of it. A run
-prints one JSON line: lh5 decode MB/s (of the blobs the run's own
-api.compress_many writes, which equal the oracle's) and bzip2 decode MB/s
-(median of 3 warm calls, as chip_smoke.py phases 11 and 15), `lzhuf_walk`
+prints one JSON line: gzip encode MB/s (api.compress_many at level 6
+on the buffers, as chip_smoke.py phase 5 but the same buffers each
+call), lh5 decode MB/s (of the blobs the run's own api.compress_many
+writes, which equal the oracle's) and bzip2 decode MB/s (median of 3
+warm calls, as chip_smoke.py phases 5, 11 and 15), `lzhuf_walk`
 on the segmented layout of the first buffer's lh5 body (the headline
 decode dispatch's own input; with the layout's end-bit hint where the
 checkout has one) and `ibwt` on the headline bzip2 batch's last columns
@@ -35,8 +38,8 @@ import subprocess
 import sys
 import time
 
-METRICS = ("lh5_decode_mb_s", "bzip2_decode_mb_s", "lzhuf_walk_ms",
-           "ibwt_ms", "reach_walk_ms", "v3w_ms")
+METRICS = ("gzip_encode_mb_s", "lh5_decode_mb_s", "bzip2_decode_mb_s",
+           "lzhuf_walk_ms", "ibwt_ms", "reach_walk_ms", "v3w_ms")
 
 
 def run_side(data_path: str) -> dict:
@@ -59,6 +62,9 @@ def run_side(data_path: str) -> dict:
     lz = api.compress_many(bufs, cs.LZHUF_METHOD, device="cuda")
     out = {}
     for name, fn in (
+            ("gzip_encode_mb_s",
+             lambda: api.compress_many(bufs, "gzip", level=cs.LEVEL,
+                                       device="cuda")),
             ("lh5_decode_mb_s",
              lambda: api.decompress_many(lz, cs.LZHUF_METHOD,
                                          device="cuda")),

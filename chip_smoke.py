@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the tpz_torch gzip, LZHUF and bzip2 encode and decode
-paths, of the two parse functions no codec path reaches, of the
-streaming encode and decode, raw LZSS, the checksums and the CLI, on one
-NVIDIA GPU.
+paths, of the v3w parse walk no codec path reaches, of the streaming
+encode and decode, raw LZSS, the checksums, the CLI and the sharded
+shape (mesh encodes, the sharded encode step, span sharding with a real
+two-process job), on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -207,10 +208,36 @@ Phases (each prints one line; any failure raises and exits non-zero):
  26. cli      python -m tpz_torch selftest -n 1048576 --device cuda as a
               subprocess (every format OK), then compress / decompress
               file round trips at gzip and lh5
+ 27. sharded-gzip
+              tpz_torch.parallel.mesh.sharded_compress of 64 MiB (the
+              first four headline buffers) on make_mesh(4): four 16 MiB
+              shards on cuda:0, one gzip member each, equal to members
+              built from oracle.deflate_encode; gzip reads it; #1 launched
+              4 times, no host decline; warm median of 3 (MB/s); the ratio
+              cost of the cut against one member of the whole 64 MiB
+ 28. sharded-bzip2
+              sharded_compress_bzip2 of the same 64 MiB at level 9 on
+              make_mesh(4) and make_mesh(1): equal bytes, bz2 reads them,
+              MTF launches counted; warm median of 3
+ 29. sharded-step
+              sharded_encode_step(make_mesh(4), k=8, window=32768,
+              block=65536) on 16 MiB: #8 launched 4 times, every token
+              count positive, is_token equal to the plain reach route;
+              find_matches at 1 MiB equal on the card and the CPU;
+              ragged_all_gather equal to ring_all_gather on phase 27's
+              member bodies
+ 30. distributed
+              parallel.distributed.compress_sharded of the 64 MiB in 16
+              MiB spans, gzip and bzip2; a run with span 1 failing raises
+              and its resume gives the same bytes; a two-process job
+              (torch.multiprocessing, two ranks on cuda:0 joined by gloo
+              over 127.0.0.1: rank 1 writes its spans, both meet at a
+              barrier, rank 0 assembles) gives the one-process bytes
 The last phase line gives the script's seconds so far. A JSON record of
-the kernels (launches from each one's main-path call:
-gzip encode, gzip decode, lh5 encode, lh5 decode, bzip2 decode, the
-public functions of #8 and #9, bzip2 encode, checksums.crc32; times and
+the kernels (launches from each one's main-path calls:
+gzip encode and sharded_compress, gzip decode, lh5 encode, lh5 decode,
+bzip2 decode, the public functions of #8 (and sharded_encode_step) and
+#9, bzip2 encode and sharded_compress_bzip2, checksums.crc32; times and
 bounds at the headline shapes) comes before the card's name and power
 limit; the last
 line is {"ok": true, "device": {...}}. Needs the repository checkout
@@ -1307,23 +1334,39 @@ def phase_lzhuf_timing(batches, batch, blobs, smi) -> None:
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# Host time between each end of a traced session's step and the traced
+# call (traced_session says why).
+TRACE_MARGIN_S = 0.05
+HOST_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def launched_in(events, t0_us: float, t1_us: float) -> set:
+    """The correlation ids of the runtime and driver calls that the host
+    made in [t0_us, t1_us] of a chrome trace."""
+    return {e["args"]["correlation"] for e in events
+            if e.get("cat") in HOST_LAUNCH_CATS
+            and t0_us <= float(e["ts"]) <= t1_us
+            and "correlation" in e.get("args", {})}
 
 
 def device_busy(events, t0_us: float, t1_us: float):
-    """(busy ms, {op name: ms}) of the device events of a chrome trace,
-    each clipped to [t0_us, t1_us]: an event the device clock places
-    partly outside the host annotation still counts for its part inside."""
+    """(busy ms, {op name: ms}) of the device events of a chrome trace
+    that were launched in [t0_us, t1_us]: those whose correlation id is
+    that of a runtime or driver call the host made in the window. The
+    trace places a session's device events against the host's clock with
+    an offset of its own (traced_session), so a device event's own time
+    does not say whether the window launched it."""
+    launched = launched_in(events, t0_us, t1_us)
     spans, by_name = [], {}
     for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
+        if (e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS
+                or e.get("args", {}).get("correlation") not in launched):
             continue
-        a = max(float(e["ts"]), t0_us)
-        b = min(float(e["ts"]) + float(e.get("dur", 0)), t1_us)
-        if b <= a:
-            continue
+        a = float(e["ts"])
+        b = a + float(e.get("dur", 0))
         spans.append((a, b))
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + (b - a) / 1e3
-    busy, end = 0.0, -1.0
+    busy, end = 0.0, -float("inf")
     for a, b in sorted(spans):
         if b <= end:
             continue
@@ -1352,29 +1395,36 @@ def names_kernel(event_name: str, kernel: str) -> bool:
     return event_name == kernel or f"{kernel}(" in event_name
 
 
-def missing_kernels(events, counters) -> list:
+def missing_kernels(events, counters, t0_us: float, t1_us: float) -> list:
     """The CUDA kernels (each wrapper's .kernels) of the wrappers in
-    `counters` that launched, which no kernel event of the trace names."""
-    names = [e["name"] for e in kernel_events(events)]
+    `counters` that launched, which no kernel event of the trace launched
+    in [t0_us, t1_us] names."""
+    launched = launched_in(events, t0_us, t1_us)
+    names = [e["name"] for e in kernel_events(events)
+             if e.get("args", {}).get("correlation") in launched]
     return [k for c in counters.values() if c.launches
             for k in c.kernels
             if not any(names_kernel(n, k) for n in names)]
 
 
-def profile_call(fn, label: str, counters: dict,
-                 phase: str = "lzhuf-profile") -> None:
-    """One call of fn under torch.profiler: logs its wall time, device
-    busy time, idle share, the device time of each CUDA kernel of the
-    wrappers in `counters` (name -> wrapper) and the top device ops.
-    Raises if the trace holds no device time, or lacks a kernel of a
-    wrapper that the call launched. The session first runs fn once as
-    the profiler's warm-up step (tracing on, its records dropped), so
-    that the traced call is warm inside the session too. A full run once
-    lost a kernel the call launched (phase 15's bzip2_records_kernel)
-    from a trace taken without that step; no run has shown whether the
-    step prevents it (PERF.md §7)."""
+def traced_session(fn, label: str, counters: dict,
+                   margin_s: float = None):
+    """One torch.profiler session of fn: a warm-up step (tracing on, its
+    records dropped), then a traced step that calls fn until margin_s
+    (TRACE_MARGIN_S by default) has passed, then fn once more under a
+    `label` annotation, then margin_s of idle host time. The profiler
+    keeps only the device events that its clock places inside the traced
+    step, and that clock stands off the host's by an offset that changes
+    from session to session (trace_offset.py measures it); without the
+    margins, traces lost a call's first kernels (phase 15's
+    bzip2_records_kernel twice, greedy_parse's reach_tile_walk once). The
+    calls before the annotation keep the traced call as warm as the one
+    before it. The wrappers' counts are set to 0 just before the traced
+    call. Returns (the chrome-trace events, the traced call's wall ms,
+    the annotation's [t0_us, t1_us] in the trace)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    margin_s = TRACE_MARGIN_S if margin_s is None else margin_s
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
@@ -1382,6 +1432,10 @@ def profile_call(fn, label: str, counters: dict,
         fn()
         torch.cuda.synchronize()
         prof.step()
+        start = time.perf_counter()
+        while time.perf_counter() - start < margin_s:
+            fn()
+            torch.cuda.synchronize()
         for c in counters.values():
             c.launches = 0
         with torch.profiler.record_function(label):
@@ -1389,18 +1443,30 @@ def profile_call(fn, label: str, counters: dict,
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(margin_s)
         prof.step()
     events = trace_events(prof)
     mark = next(e for e in events if e.get("name") == label
                 and e.get("cat") == "user_annotation")
     t0_us = float(mark["ts"])
-    busy_ms, by_name = device_busy(events, t0_us, t0_us + float(mark["dur"]))
+    return events, wall_ms, (t0_us, t0_us + float(mark["dur"]))
+
+
+def profile_call(fn, label: str, counters: dict,
+                 phase: str = "lzhuf-profile") -> None:
+    """One call of fn in a traced_session: logs its wall time, device
+    busy time, idle share, the device time of each CUDA kernel of the
+    wrappers in `counters` (name -> wrapper) and the top device ops.
+    Raises if the trace holds no device time, or lacks a kernel of a
+    wrapper that the call launched."""
+    events, wall_ms, window = traced_session(fn, label, counters)
+    busy_ms, by_name = device_busy(events, *window)
     if busy_ms <= 0:
         raise RuntimeError(f"{label}: the trace holds no device time")
     launched = {name: c.launches for name, c in counters.items()}
     if min(launched.values()) < 1:
         raise RuntimeError(f"{label}: a wrapper did not launch: {launched}")
-    missing = missing_kernels(events, counters)
+    missing = missing_kernels(events, counters, *window)
     if missing:
         names = sorted({e["name"][:60] for e in kernel_events(events)})
         raise RuntimeError(f"{label}: launched kernels missing from the "
@@ -2444,6 +2510,296 @@ def phase_cli() -> None:
                 seconds=f"{enc_s + dec_s:.1f}")
 
 
+def phase_sharded_gzip(data, smi):
+    """sharded_compress of `data` (64 MiB) on make_mesh(4): four shards
+    of 16 MiB, all on cuda:0. The output equals one gzip member per 16 MiB
+    span built from oracle.deflate_encode with the same framing, and
+    gzip reads it; #1 launches once a shard and no shard is declined to
+    the host. Timed (warm median of 3), and the ratio cost of the cut: the
+    four members against one member of the whole buffer (the oracle's
+    stream, as a buffer above MAX_DEVICE_SPAN takes). Returns (#1's
+    launches, the four DEFLATE bodies)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpz_torch import oracle
+    from tpz_torch.codecs import gzip_codec
+    from tpz_torch.codecs.deflate import DeflateConfig
+    from tpz_torch.kernels import deflate_pipeline as dp
+    from tpz_torch.kernels import parse
+    from tpz_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(4, device="cuda")
+    declines = dp.host_declines
+    out, dt, c = drive("sharded-gzip", "mesh4-64MiB", lambda: (
+        pmesh.sharded_compress(data, mesh, level=LEVEL)),
+        {"parse": parse.parse_extend_v3})
+    if c["parse"] != 4 or dp.host_declines != declines:
+        raise RuntimeError(f"sharded-gzip: #1 launched {c['parse']} times "
+                           f"(want 4), host declines "
+                           f"{dp.host_declines - declines}")
+    params = DeflateConfig(LEVEL).params_array()
+    span = len(data) // 4
+    spans = [data[i * span:(i + 1) * span] for i in range(4)]
+    with ThreadPoolExecutor(5) as pool:
+        whole = pool.submit(oracle.deflate_encode, data, params)
+        bodies = list(pool.map(lambda s: oracle.deflate_encode(s, params),
+                               spans))
+        whole = whole.result()
+    hdr = gzip_codec.header_bytes(LEVEL)
+    want = b"".join(hdr + b + gzip_codec._trailer(s)
+                    for s, b in zip(spans, bodies))
+    if out != want:
+        raise RuntimeError("sharded-gzip: members differ from the oracle's")
+    if gzip.decompress(out) != data:
+        raise RuntimeError("sharded-gzip: gzip round trip failed")
+    median, times = warm_median(
+        lambda _: pmesh.sharded_compress(data, mesh, level=LEVEL), range(3))
+    one = len(hdr) + len(whole) + 8
+    log("sharded-gzip", shards=4, shard_bytes=span, parse_launches=c["parse"],
+        oracle_identical=True, gzip_round_trip=True, host_declines=0,
+        cold_s=f"{dt:.3f}", mb_per_s=f"{len(data) / median / 1e6:.2f}",
+        median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
+        card=f"'{smi}'")
+    log("sharded-gzip", cut_members_bytes=len(out), one_member_bytes=one,
+        cut_cost_bytes=len(out) - one,
+        cut_cost_share=f"{(len(out) - one) / one:.6f}",
+        ratio_cut=f"{len(out) / len(data):.6f}",
+        ratio_one=f"{one / len(data):.6f}")
+    return c["parse"], bodies
+
+
+def phase_sharded_bzip2(data, smi):
+    """sharded_compress_bzip2 of `data` at level 9 on make_mesh(4) and on
+    make_mesh(1) (about 73 blocks: two dispatches): the bytes are equal
+    and bz2 reads them; the MTF kernel's launches counted on each. The
+    mesh(4) run timed (warm median of 3). Returns its MTF launches."""
+    from tpz_torch.kernels import mtf
+    from tpz_torch.parallel import mesh as pmesh
+
+    runs = {}
+    for n in (4, 1):
+        mesh = pmesh.make_mesh(n, device="cuda")
+        runs[n] = drive("sharded-bzip2", f"mesh{n}", lambda: (
+            pmesh.sharded_compress_bzip2(data, mesh, BZIP2_LEVEL)),
+            {"mtf": mtf.mtf_ranks})
+    if runs[4][0] != runs[1][0]:
+        raise RuntimeError("sharded-bzip2: mesh(4) and mesh(1) differ")
+    if bz2.decompress(runs[4][0]) != data:
+        raise RuntimeError("sharded-bzip2: bz2 round trip failed")
+    mesh = pmesh.make_mesh(4, device="cuda")
+    median, times = warm_median(lambda _: pmesh.sharded_compress_bzip2(
+        data, mesh, BZIP2_LEVEL), range(3))
+    out = runs[4][0]
+    log("sharded-bzip2", level=BZIP2_LEVEL,
+        mesh4_mtf_launches=runs[4][2]["mtf"],
+        mesh1_mtf_launches=runs[1][2]["mtf"], mesh_invariant=True,
+        bz2_round_trip=True, ratio=f"{len(out) / len(data):.6f}",
+        cold_s=f"{runs[4][1]:.3f}", mb_per_s=f"{len(data) / median / 1e6:.2f}",
+        median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
+        card=f"'{smi}'")
+    return runs[4][2]["mtf"]
+
+
+def phase_sharded_step(data, bodies, smi):
+    """sharded_encode_step(make_mesh(4), k=8, window=32768, block=65536)
+    on the first 16 MiB of `data` (64 blocks a shard): #8 launches once a
+    shard, every block's token count is positive, and is_token equals the
+    plain reach route (_reach_doubling) on the same lengths on the card;
+    find_matches at 1 MiB on the card equals the same call on the CPU; and
+    ragged_all_gather equals ring_all_gather on the card on phase 27's
+    member bodies. Returns #8's launches."""
+    from tpz_torch.kernels import matchfinder as mf
+    from tpz_torch.kernels import parse
+    from tpz_torch.parallel import mesh as pmesh
+
+    block, window = mf.BLOCK, mf.WINDOW
+    n = 16 * MIB
+    nb = n // block
+    rows = torch.frombuffer(bytearray(data[:n]), dtype=torch.uint8).reshape(
+        nb, block).cuda()
+    span_off = torch.arange(nb, dtype=torch.int32, device="cuda") * block
+    step = pmesh.sharded_encode_step(pmesh.make_mesh(4, device="cuda"), k=8,
+                                     window=window, block=block)
+    (mlen, _, is_token, counts), dt, c = drive(
+        "sharded-step", "mesh4-16MiB", lambda: step(rows, span_off, n),
+        {"reach": parse.reach_walk})
+    if c["reach"] != 4 or not bool((counts > 0).all()):
+        raise RuntimeError(f"sharded-step: #8 launched {c['reach']} times "
+                           f"(want 4), min count {int(counts.min())}")
+    steps = torch.where(mlen >= mf.MIN_MATCH, mlen, 1).to(torch.int64)
+    if not torch.equal(is_token, parse._reach_doubling(steps)):
+        raise RuntimeError("sharded-step: is_token differs from the plain "
+                           "reach route")
+
+    nbm = MIB // block
+    span = np.zeros(window + nbm * block + mf.FWD_PAD, np.uint8)
+    span[window:window + MIB] = np.frombuffer(data[:MIB], np.uint8)
+    idx = (np.arange(nbm)[:, None] * block
+           + np.arange(window + block + mf.FWD_PAD)[None, :])
+    halo = torch.from_numpy(span[idx].astype(np.int32))
+    so = torch.arange(nbm, dtype=torch.int32) * block
+    t0 = time.perf_counter()
+    got = mf.find_matches(halo.cuda(), so.cuda(), torch.tensor(MIB).cuda())
+    torch.cuda.synchronize()
+    fm_s = time.perf_counter() - t0
+    want = mf.find_matches(halo, so, torch.tensor(MIB))
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise RuntimeError("find_matches differs between the card and CPU")
+
+    mesh = pmesh.make_mesh(4, device="cuda")
+    sizes = torch.tensor([len(b) for b in bodies], dtype=torch.int32)
+    pay = torch.zeros((4, int(sizes.max())), dtype=torch.uint8)
+    for i, b in enumerate(bodies):
+        pay[i, :len(b)] = torch.frombuffer(bytearray(b), dtype=torch.uint8)
+    pay, sizes = pay.cuda(), sizes.cuda()
+    (ragged, total), g_ms = timed(lambda: pmesh.ragged_all_gather(mesh, pay,
+                                                                 sizes))
+    (ring, ring_total), r_ms = timed(lambda: pmesh.ring_all_gather(mesh, pay,
+                                                                  sizes))
+    cat = b"".join(bodies)
+    if (not torch.equal(ragged, ring) or int(total) != int(ring_total)
+            or ragged[:len(cat)].cpu().numpy().tobytes() != cat):
+        raise RuntimeError("ragged and ring gathers differ")
+    log("sharded-step", shards=4, blocks=nb, reach_launches=c["reach"],
+        tokens=int(counts.sum()), plain_reach_equal=True,
+        find_matches_card_equals_cpu=True, gathers_equal=True,
+        cold_s=f"{dt:.3f}", find_matches_1MiB_s=f"{fm_s:.3f}",
+        ragged_gather_ms=f"{g_ms:.3f}", ring_gather_ms=f"{r_ms:.3f}",
+        gathered_bytes=int(total), card=f"'{smi}'")
+    return c["reach"]
+
+
+def phase_distributed(data, smi):
+    """compress_sharded of `data` (64 MiB) in 16 MiB spans on the card,
+    gzip and bzip2, each in a work dir: the bytes round-trip; a run with
+    span 1 failing raises and its resume gives the uninterrupted bytes;
+    then the two-process job (two spawned ranks on cuda:0, gloo over
+    127.0.0.1) gives the one-process bytes."""
+    from tpz_torch import REPO_ROOT
+    from tpz_torch.kernels import mtf, parse
+    from tpz_torch.parallel import distributed as pdist
+
+    build = os.path.join(REPO_ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    span = 16 * MIB
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        one = {}
+        for fmt, counter, read in (("gzip", parse.parse_extend_v3,
+                                    gzip.decompress),
+                                   ("bzip2", mtf.mtf_ranks, bz2.decompress)):
+            wd = os.path.join(tmp, f"one-{fmt}")
+            os.makedirs(wd)
+            one[fmt], dt, c = drive("distributed", fmt, lambda: (
+                pdist.compress_sharded(data, fmt, device="cuda",
+                                       span_bytes=span, work_dir=wd)),
+                {"kernel": counter})
+            if read(one[fmt]) != data:
+                raise RuntimeError(f"distributed {fmt}: round trip failed")
+            log("distributed", format=fmt, spans=len(os.listdir(wd)) - 1,
+                launches=c["kernel"], round_trip=True, cold_s=f"{dt:.3f}",
+                mb_per_s=f"{len(data) / dt / 1e6:.2f}", card=f"'{smi}'")
+        wd = os.path.join(tmp, "resume")
+        os.makedirs(wd)
+        try:
+            pdist.compress_sharded(data, "gzip", device="cuda",
+                                   span_bytes=span, work_dir=wd,
+                                   fail_spans={1})
+            raise RuntimeError("distributed: a failed span did not raise")
+        except RuntimeError as e:
+            if "span 1 incomplete" not in str(e):
+                raise
+        t0 = time.perf_counter()
+        if pdist.compress_sharded(data, "gzip", device="cuda",
+                                  span_bytes=span, work_dir=wd) != one["gzip"]:
+            raise RuntimeError("distributed: the resumed run differs")
+        resume_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()  # the ranks share this card
+        two, two_s = two_process_job(data, os.path.join(tmp, "two"), span,
+                                     "cuda", ("gzip", "bzip2"), timeout=300)
+        if two != one:
+            raise RuntimeError("distributed: the two-process job's bytes "
+                               "differ from the one-process run's")
+    log("distributed", fail_raised=True, resume_equal=True,
+        resume_s=f"{resume_s:.3f}", two_process_equal=True, ranks=2,
+        two_process_s=f"{two_s:.1f}", card=f"'{smi}'")
+
+
+def distributed_rank(rank, coordinator, data, work_dir, span_bytes, device,
+                     formats):
+    """One rank of the two-process job (phase 30; on the CPU in
+    tests/test_torch_parallel.py): it joins the gloo group at
+    `coordinator`, then for each format rank 1 writes its spans into
+    work_dir/<format>, both ranks meet at a barrier, and rank 0 encodes
+    its own spans and assembles work_dir/<format>.out. The barrier is the
+    caller's: compress_sharded's process 0 assembles without waiting."""
+    import torch.distributed as dist
+
+    from tpz_torch.parallel import distributed as pdist
+
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    pdist.init_distributed(coordinator, 2, rank, backend="gloo",
+                           device=device)
+    try:
+        for fmt in formats:
+            kw = dict(format=fmt, device=device, span_bytes=span_bytes,
+                      work_dir=os.path.join(work_dir, fmt),
+                      process_index=rank, process_count=2)
+            if rank:
+                if pdist.compress_sharded(data, **kw) is not None:
+                    raise RuntimeError("rank 1 returned an assembly")
+                if torch.device(device).type == "cuda":
+                    torch.cuda.empty_cache()  # rank 0 encodes on this card
+                dist.barrier()
+            else:
+                dist.barrier()
+                blob = pdist.compress_sharded(data, **kw)
+                with open(os.path.join(work_dir, fmt + ".out"), "wb") as f:
+                    f.write(blob)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_process_job(data, work_dir, span_bytes, device, formats, timeout):
+    """distributed_rank on two processes spawned by torch.multiprocessing,
+    joined over 127.0.0.1 at a free port. Returns ({format: the assembled
+    bytes}, seconds). Raises if a rank fails or outlives `timeout`
+    seconds (a rank still running is killed)."""
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for fmt in formats:
+        os.makedirs(os.path.join(work_dir, fmt), exist_ok=True)
+    ctx = tmp.get_context("spawn")
+    procs = [ctx.Process(target=distributed_rank, args=(
+        r, f"127.0.0.1:{port}", data, work_dir, span_bytes, device, formats))
+        for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    dt = time.perf_counter() - t0
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if bad:
+        raise RuntimeError(f"two-process job: ranks failed or timed out "
+                           f"(rank, exit code): {bad}")
+    out = {}
+    for fmt in formats:
+        with open(os.path.join(work_dir, fmt + ".out"), "rb") as f:
+            out[fmt] = f.read()
+    return out, dt
+
+
 def main() -> int:
     import tpz_torch  # noqa: F401 — fails at once outside a checkout
     from tpz_torch.utils import corpus
@@ -2502,14 +2858,25 @@ def main() -> int:
     phase_lzss(data)
     crc_n, crc_row = phase_checksums(small, data, smi)
     phase_cli()
+    # The sharded shape on 64 MiB: the first four headline buffers. Phase
+    # 27 takes them rotated by 8 MiB, so that its cuts fall inside a
+    # buffer, where a member loses context, and not at the seams between
+    # two independent buffers.
+    data64 = b"".join(batches[0] + batches[1])
+    sharded_parse, bodies = phase_sharded_gzip(
+        data64[8 * MIB:] + data64[:8 * MIB], smi)
+    sharded_mtf = phase_sharded_bzip2(data64, smi)
+    step_reach = phase_sharded_step(data64, bodies, smi)
+    phase_distributed(data64, smi)
     log("total", script_s=f"{time.perf_counter() - start:.1f}")
-    # Each kernel's launches come from its own main-path call: gzip encode
-    # (#1), gzip decode (#2, #3), lh5 encode (#4), lh5 decode (#5), bzip2
-    # decode (#6, #7), the public functions greedy_parse (#8) and
-    # parse_extend_v3w (#9), bzip2 encode (the MTF encode), and
+    # Each kernel's launches come from its own main-path calls: gzip encode
+    # and sharded_compress (#1), gzip decode (#2, #3), lh5 encode (#4), lh5
+    # decode (#5), bzip2 decode (#6, #7), the public function greedy_parse
+    # and sharded_encode_step (#8), parse_extend_v3w (#9), bzip2 encode
+    # and sharded_compress_bzip2 on make_mesh(4) (the MTF encode), and
     # checksums.crc32 on the card (the CRC lanes).
     rows = [("parse_walk_v3", "parse_walk.cu", "tpz/kernels/parse.py:464",
-             launches, kern),
+             launches + sharded_parse, kern),
             ("symbol_walk", "symbol_walk.cu",
              "tpz/kernels/inflate_pipeline.py:55", dec["walk"], walk),
             ("resolve_copy_machine", "resolve_walk.cu",
@@ -2523,11 +2890,11 @@ def main() -> int:
             ("ibwt_walk", "ibwt_walk.cu", "tpz/kernels/ibwt_walk.py:150",
              bz["ibwt"], bz_ibwt),
             ("reach_walk", "reach_walk.cu", "tpz/kernels/parse.py:29",
-             reach_n, reach),
+             reach_n + step_reach, reach),
             ("parse_walk_v3w", "parse_walk.cu", "tpz/kernels/parse.py:211",
              v3w_n, v3w),
-            ("mtf_encode", "mtf_encode.cu", "tpz/kernels/mtf.py:36", mtf_n,
-             mtf_row),
+            ("mtf_encode", "mtf_encode.cu", "tpz/kernels/mtf.py:36",
+             mtf_n + sharded_mtf, mtf_row),
             ("crc32_lanes", "crc32_lanes.cu",
              "tpz/kernels/checksums.py:104", crc_n, crc_row)]
     # None of these functions has one PyTorch call that computes it (torch

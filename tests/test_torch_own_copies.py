@@ -89,9 +89,10 @@ def test_port_loads_nothing_from_the_reference_package():
     too), its bzip2 modules (both directions), its parse walks, raw LZSS,
     the checksums and the CLI, builds and loads its oracle, encodes and
     decodes LZHUF, bzip2 (whole and streamed), raw LZSS and a gzip stream
-    on the CPU, takes both checksums, and runs the greedy parse and the
-    v3w walk: jax stays unloaded and no loaded module's file lies under
-    tpz/."""
+    on the CPU, takes both checksums, runs the greedy parse and the v3w
+    walk, imports the sharded shape and the run reports and runs a
+    sharded gzip encode on a CPU mesh: jax stays unloaded and no loaded
+    module's file lies under tpz/."""
     oracle.build()  # so the child only loads it
     code = (
         "import bz2, json, os, sys\n"
@@ -103,6 +104,8 @@ def test_port_loads_nothing_from_the_reference_package():
         "import tpz_torch.kernels.rle, tpz_torch.kernels.bzip2_plan_device\n"
         "from tpz_torch.kernels import checksums, parse\n"
         "import tpz_torch.__main__, tpz_torch.codecs.lzss\n"
+        "import tpz_torch.parallel.distributed, tpz_torch.utils.metrics\n"
+        "from tpz_torch.parallel import mesh\n"
         "from tpz_torch import REPO_ROOT, oracle\n"
         "from tpz_torch.action import Action\n"
         "import gzip, zlib\n"
@@ -130,6 +133,8 @@ def test_port_loads_nothing_from_the_reference_package():
         "z = torch.zeros((1, 256), dtype=torch.int32)\n"
         "parse.parse_extend_v3w(z, z, torch.zeros((1, 1024), dtype=torch.int32),\n"
         "                       torch.tensor([256], dtype=torch.int32), 256)\n"
+        "m = mesh.make_mesh(2, device='cpu')\n"
+        "assert gzip.decompress(mesh.sharded_compress(d, m, level=1)) == d\n"
         "ref = os.path.join(REPO_ROOT, 'tpz') + os.sep\n"
         "bad = sorted(n for n, m in list(sys.modules.items())\n"
         "             if (getattr(m, '__file__', None) or '').startswith(ref))\n"

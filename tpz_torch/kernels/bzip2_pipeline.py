@@ -430,6 +430,24 @@ def _splice_eos(body: bytearray, end_bit: int, crcs) -> bytes:
     return bytes(body)
 
 
+def encode_layout(blocks, device, stage_hook=_nohook):
+    """Encode `blocks` (stream_blocks) in dispatches of at most
+    MAX_DISPATCH_BLOCKS into one bit layout. Returns (body uint8: the
+    layout's bytes, MSB first; body_off, total_bits [NB] int64: each
+    block's bit offset in it and its length)."""
+    pos, parts = 0, []
+    for g in range(0, len(blocks), MAX_DISPATCH_BLOCKS):
+        w0, words, off, tb, pos = _encode_dispatch(
+            blocks[g:g + MAX_DISPATCH_BLOCKS], pos, device, stage_hook)
+        parts.append((w0, words, off, tb))
+    layout = np.zeros(max(w0 + w.size for w0, w, _, _ in parts), np.uint32)
+    for w0, words, _, _ in parts:
+        layout[w0:w0 + words.size] |= words
+    return (layout.astype(">u4").view(np.uint8),
+            np.concatenate([p[2] for p in parts]),
+            np.concatenate([p[3] for p in parts]))
+
+
 def compress_many(datas, level: int = 9, device="cuda",
                   stage_hook=_nohook) -> list[bytes]:
     """Batched bzip2 encode: every buffer's blocks share one device
@@ -447,18 +465,8 @@ def compress_many(datas, level: int = 9, device="cuda",
     stage_hook("rle1")
     if not items:
         return results
-    blocks = stream_blocks([p for _, p in items])
-    pos, parts = 0, []
-    for g in range(0, len(blocks), MAX_DISPATCH_BLOCKS):
-        w0, words, off, tb, pos = _encode_dispatch(
-            blocks[g:g + MAX_DISPATCH_BLOCKS], pos, device, stage_hook)
-        parts.append((w0, words, off, tb))
-    layout = np.zeros(max(w0 + w.size for w0, w, _, _ in parts), np.uint32)
-    for w0, words, _, _ in parts:
-        layout[w0:w0 + words.size] |= words
-    body = layout.astype(">u4").view(np.uint8)
-    body_off = np.concatenate([p[2] for p in parts])
-    tb = np.concatenate([p[3] for p in parts])
+    body, body_off, tb = encode_layout(stream_blocks([p for _, p in items]),
+                                       device, stage_hook)
     hdr = b"BZh" + bytes([0x30 + level])
     b0 = 0
     for i, (_, _, ln, crc) in items:

@@ -69,6 +69,23 @@ def _make_words(span_u8: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev_tail, base, next_head], dim=1)
 
 
+def _zero_past_end(words: torch.Tensor, block_len: torch.Tensor,
+                   bfinal: torch.Tensor) -> torch.Tensor:
+    """Zero the bytes past each buffer's end in the words of its last
+    block's row, in place. In the batch's 1-D span the next buffer starts
+    right after a buffer's last block, so a screen key near the end of a
+    buffer that fills (or nearly fills) that block would read the next
+    buffer's first bytes where the C++ oracle's keys read zeros, and the
+    sorted neighbours, and so the bytes, could differ from the oracle's."""
+    rows = torch.nonzero(bfinal).flatten()
+    col = torch.arange(words.shape[1], device=words.device)
+    rem = torch.clamp(WINDOW + block_len[rows, None].to(torch.int64) - col,
+                      0, 4)
+    mask = (torch.ones_like(rem) << (8 * rem)) - 1
+    words[rows] = to_i32(words[rows].to(torch.int64) & mask)
+    return words
+
+
 def _hist(sym: torch.Tensor, nbins: int) -> torch.Tensor:
     """Per-row histogram [NB, nbins] int32 of sym [NB, B] in 0..nbins;
     the value nbins marks a masked position and is not counted."""
@@ -87,7 +104,7 @@ def _fused_encode(span, span_off, span_len, block_len, buf_start, bfinal,
     """span and the [NB] vectors on the device -> (words [total_words]
     int32 on the device, end_pos [NB] numpy: each block's end bit)."""
     sb = cfg.screen_bytes
-    words = _make_words(span)
+    words = _zero_past_end(_make_words(span), block_len, bfinal)
     stage_hook("words")
     pk1, pk2, cap_at = suffix_screen_w_chunked(
         words, span_off, span_len, cfg.max_chain, WINDOW, BLOCK, MAX_MATCH,

@@ -9,9 +9,11 @@ Spec v1 (LZHUF, `screen_candidates` / `screen_candidates_w`): positions
 are sorted by (3-byte hash, position), so each position's K most recent
 same-hash predecessors are its K sorted-order neighbours; each is scored
 by its clamped 8-byte match and the best (ties to the most recent) wins.
-The reference's CPU route after the screen (`find_matches`, rank arrays)
-is not ported: the port's one route is the screen, then the v1 parse
-walk (kernels/parse.py).
+The LZHUF codec's route is the screen, then the v1 parse walk
+(kernels/parse.py). `find_matches` extends the screen's winner to its
+full match with prefix-doubling rank arrays (`build_ranks`,
+`lcp_from_ranks`); its one caller is the sharded encode step
+(parallel/mesh.py).
 
 The outputs are bit-identical to the reference's. Words arrive as int32
 bit patterns of u32 little-endian 4-byte windows.
@@ -31,6 +33,7 @@ MAX_MATCH = 258
 MIN_MATCH = 3
 TOO_FAR = 4096
 HASH_BITS = 15
+RANK_LEVELS = (4, 8, 16, 32, 64, 128, 256)
 
 _I32_MIN = -(1 << 31)
 
@@ -300,3 +303,104 @@ def screen_candidates(data, span_off, span_len, k: int, window: int,
     """screen_candidates_w on the 4-byte windows of byte data [NB, M]."""
     return screen_candidates_w(words_at(data), span_off, span_len, k,
                                window, block, max_match)
+
+
+# ------------------------------------------------------- rank extension
+
+def build_ranks(words: torch.Tensor) -> dict:
+    """Prefix-doubling ranks (the reference's build_ranks,
+    tpz/kernels/matchfinder.py:336). words [NB, M] int32 bit patterns of u32
+    4-byte windows. Returns {level: rank [NB, M] int32} for each level of
+    RANK_LEVELS: positions compare by their next `level` bytes (the data
+    past a row's end wraps, as the reference's rolls do; callers clamp
+    lengths to real bounds). A rank is 1 + the number of distinct smaller
+    keys.
+
+    The reference sorts on (k1, k2, idx); torch has no multi-key sort
+    (H4), so each level packs its keys into one int64 with the position
+    last: the u32 word then 17 bits of position at level 4, and the rank,
+    the rank `level / 2` on, then the position, 17 bits each, above."""
+    NB, M = words.shape
+    if M >= 1 << 17:
+        raise ValueError(f"build_ranks: M = {M} must be below 2^17 (each "
+                         "key holds a position and ranks in 17 bits)")
+    idx = torch.arange(M, device=words.device, dtype=torch.int64)
+
+    def assign_ranks(key):
+        skey, sidx = torch.sort(key, dim=1)
+        k = skey >> 17
+        diff = torch.ones((NB, M), dtype=torch.int32, device=words.device)
+        diff[:, 1:] = (k[:, 1:] != k[:, :-1]).to(torch.int32)
+        return torch.empty_like(diff).scatter_(
+            1, sidx, torch.cumsum(diff, dim=1, dtype=torch.int32))
+
+    r = assign_ranks((as_u32(words) << 17) | idx)
+    ranks = {4: r}
+    for lvl in RANK_LEVELS[1:]:
+        # Past the row's end the shift wraps; wrapped values only reach
+        # the last `lvl / 2` columns, in the forward pad.
+        shifted = torch.roll(r, -(lvl // 2), dims=1)
+        r = assign_ranks((r.to(torch.int64) << 34)
+                         | (shifted.to(torch.int64) << 17) | idx)
+        ranks[lvl] = r
+    return ranks
+
+
+def lcp_from_ranks(ranks: dict, p: torch.Tensor, q: torch.Tensor,
+                   words: torch.Tensor, data: torch.Tensor,
+                   cap: torch.Tensor) -> torch.Tensor:
+    """The common prefix length of the suffixes at M-indices p and q
+    ([NB, B] int32), clamped to cap (the reference's lcp_from_ranks,
+    tpz/kernels/matchfinder.py:370): down the rank levels 256..4, then
+    the last bytes (fewer than 4) one by one from data [NB, M]."""
+    maxi = words.shape[1] - 1
+    ln = torch.zeros_like(p)
+    cp, cq = p, q
+
+    def at(t, i):
+        return t.gather(1, torch.clamp(i, max=maxi).to(torch.int64))
+
+    for lvl in reversed(RANK_LEVELS):
+        take = (at(ranks[lvl], cp) == at(ranks[lvl], cq)) & (ln + lvl <= cap)
+        ln = torch.where(take, ln + lvl, ln)
+        cp = torch.where(take, cp + lvl, cp)
+        cq = torch.where(take, cq + lvl, cq)
+    for _ in range(3):
+        take = (at(data, cp) == at(data, cq)) & (ln < cap)
+        ln = torch.where(take, ln + 1, ln)
+        cp = torch.where(take, cp + 1, cp)
+        cq = torch.where(take, cq + 1, cq)
+    return torch.minimum(ln, cap)
+
+
+def find_matches(data: torch.Tensor, span_off: torch.Tensor, span_len,
+                 k: int = 8, window: int = WINDOW, block: int = BLOCK,
+                 max_match: int = MAX_MATCH):
+    """Batched best match at every block position, spec v1 (the
+    reference's find_matches, tpz/kernels/matchfinder.py:477).
+
+    data [NB, M] int32 byte values: block b's bytes at [window, window +
+    block), after its window halo and before the forward pad (zeros past
+    the span). span_off [NB] int32: each block's offset in the span;
+    span_len: the span's length (a scalar, or [NB]).
+
+    Returns (match_len, match_dist) [NB, block] int32, 0 where no
+    spec-valid match starts: the oracle's best match at each position,
+    before any parse."""
+    NB = data.shape[0]
+    bj, bs, words, cap_at = screen_candidates(data, span_off, span_len, k,
+                                              window, block, max_match)
+    sl = slice(window, window + block)
+    p = (torch.arange(block, device=data.device, dtype=torch.int32)
+         + window).expand(NB, block)
+    best_j, best_screen, cap = bj[:, sl], bs[:, sl], cap_at[:, sl]
+    ranks = build_ranks(words)
+    full = lcp_from_ranks(ranks, p, torch.clamp(best_j, min=0), words,
+                          data.to(torch.int32), cap)
+    need_ext = best_screen >= torch.clamp(cap, max=8)
+    mlen = torch.where(need_ext, full, torch.clamp(best_screen, min=0))
+    mdist = p - best_j
+    valid = (best_j >= 0) & (best_screen >= MIN_MATCH) & (mlen >= MIN_MATCH)
+    # The too-far rule of parse spec v1.
+    valid = valid & ~((mlen == MIN_MATCH) & (mdist > TOO_FAR))
+    return torch.where(valid, mlen, 0), torch.where(valid, mdist, 0)

@@ -1,4 +1,5 @@
-"""bzip2's RLE2 encode (port of tpz/kernels/rle.py `rle2_encode`).
+"""bzip2's RLE1 and RLE2 encodes (port of tpz/kernels/rle.py
+`rle1_encode` and `rle2_encode`).
 
 A zero run of length m emits floor(log2(m + 1)) RUNA/RUNB symbols, digit
 i being bit i of m + 1 (0 -> RUNA, 1 -> RUNB), the bijective base-2 code;
@@ -14,8 +15,12 @@ stream is placed by one scatter. Prefix sums run over the flattened batch
 (`row_cumsum`): a scan along a short batch of long rows runs far slower
 than one scan of the same elements.
 
-`rle1_encode` (the bzip2 pre-pass) is not on the port's path: the host
-oracle runs RLE1 and the block split, as in the reference's pipeline.
+`rle1_encode` (the bzip2 pre-pass) is not on the port's encode path: the
+host oracle runs RLE1 and the block split, as in the reference's
+pipeline. It is the reference's segmented scan as torch ops: run starts
+by neighbour compare and `torch.cummax`, run ends by a reverse
+`torch.cummin`, and the emitted bytes placed by `scatter_reduce("amax")`
+at a prefix count of emitters.
 """
 
 from __future__ import annotations
@@ -29,6 +34,57 @@ def row_cumsum(x: torch.Tensor) -> torch.Tensor:
     NB, n = x.shape
     c = torch.cumsum(x.reshape(-1), 0, dtype=torch.int64).reshape(NB, n)
     return c - (c[:, :1] - x[:, :1].to(torch.int64))
+
+
+def _run_starts(x: torch.Tensor):
+    """x [NB, n]. Returns (is_start [NB, n] bool, start_idx [NB, n] int64:
+    the index of the first position of the maximal run holding each
+    position)."""
+    NB, n = x.shape
+    is_start = torch.ones((NB, n), dtype=torch.bool, device=x.device)
+    is_start[:, 1:] = x[:, 1:] != x[:, :-1]
+    idx = torch.arange(n, device=x.device).expand(NB, n)
+    start_idx = torch.cummax(torch.where(is_start, idx, -1), dim=1).values
+    return is_start, start_idx
+
+
+def rle1_encode(d: torch.Tensor, length: torch.Tensor):
+    """The reference's rle1_encode (tpz/kernels/rle.py:40). d [NB, n]
+    int32 bytes; length [NB]. Returns (out [NB, n + n // 4 + 8] int32
+    RLE1 bytes, zero past each row's count; out_len [NB] int32).
+    A maximal byte run is cut into units of at most 259 bytes; a unit of
+    4 or more emits 4 bytes and a count byte (its length - 4), a shorter
+    one its bytes, unit for unit as the C++ oracle's Rle1Units."""
+    NB, n = d.shape
+    dev = d.device
+    idx = torch.arange(n, device=dev).expand(NB, n)
+    live = idx < length[:, None]
+    # Unique negative values past the length end every run there.
+    dm = torch.where(live, d.to(torch.int64), -1 - idx)
+    is_start, start_idx = _run_starts(dm)
+    j = idx - start_idx                       # offset in the maximal run
+    # The next run's start: a reverse cummin of the starts, shifted by one.
+    starts = torch.where(is_start, idx, n)
+    nxt = torch.flip(torch.cummin(torch.flip(starts, [1]), dim=1).values,
+                     [1])
+    next_start = torch.cat([nxt[:, 1:], torch.full((NB, 1), n, device=dev,
+                                                   dtype=nxt.dtype)], dim=1)
+    run_len = next_start - start_idx
+    u_pos = j % 259
+    u_len = torch.clamp(run_len - (j - u_pos), max=259)
+    is_countpos = (u_pos == 3) & (u_len >= 4)
+    emit = torch.where(live, (u_pos < 4).to(torch.int64)
+                       + is_countpos.to(torch.int64), 0)
+    offs = row_cumsum(emit) - emit
+    out_len = (offs[:, -1] + emit[:, -1]).to(torch.int32)
+    cap = n + n // 4 + 8
+    out = torch.zeros((NB, cap + 1), dtype=torch.int32, device=dev)
+    o0 = torch.where(live & (u_pos < 4), offs, cap)
+    out.scatter_reduce_(1, o0, d.to(torch.int32), "amax")
+    o1 = torch.where(live & is_countpos, offs + 1, cap)
+    out.scatter_reduce_(1, o1, torch.clamp(u_len - 4, 0, 255).to(torch.int32),
+                        "amax")
+    return out[:, :cap], out_len
 
 
 def rle2_encode(r: torch.Tensor, length: torch.Tensor):
