@@ -3,7 +3,8 @@
 paths, of the v3w parse walk no codec path reaches, of the streaming
 encode and decode, raw LZSS, the checksums, the CLI and the sharded
 shape (mesh encodes, the sharded encode step, span sharding with a real
-two-process job), on one NVIDIA GPU.
+two-process job) and the bench (`python -m tpz_torch bench`), on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -233,6 +234,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
               (torch.multiprocessing, two ranks on cuda:0 joined by gloo
               over 127.0.0.1: rank 1 writes its spans, both meet at a
               barrier, rank 0 assembles) gives the one-process bytes
+ 31. bench    python -m tpz_torch bench --device cuda as a subprocess at
+              its defaults but --bytes 8 MiB (the headline, 2 x 8 MiB
+              gzip level 6, and the reference's 12 rows): exit 0, the last line under 1 KB
+              with device_ran true, a positive value and backend "cuda",
+              every row without error or skip, every roofline share of
+              the kernel ceiling (pct_of_kernel) at most 105, the headline
+              GB/s x 1,000 within 0.5-2x of phase 5's MB/s; each row's
+              MB/s, its first call's, the build and the measured rates
+              logged; then --headline-only at 1 MiB, one batch, with
+              --trace: the chrome trace names the v3 parse walk's kernel
 The last phase line gives the script's seconds so far. A JSON record of
 the kernels (launches from each one's main-path calls:
 gzip encode and sharded_compress, gzip decode, lh5 encode, lh5 decode,
@@ -249,7 +260,6 @@ from __future__ import annotations
 import bz2
 import gzip
 import json
-import multiprocessing
 import os
 import statistics
 import struct
@@ -262,59 +272,25 @@ import zlib
 import numpy as np
 import torch
 
+# A kernel's bound is the larger of its bytes (each input read once, each
+# array the kernel writes written once) over the card's memory rate and
+# its int32 operations, hand-counted a trip (OPS_*), over the card's
+# int32 rate: tpz_torch/utils/roofline.py, which the bench prices with.
+from tpz_torch.utils.roofline import (
+    OPS_COPY_MATCHED, OPS_COPY_POSITION, OPS_CRC_BYTE, OPS_HUFFMAN_SYMBOL,
+    OPS_IBWT_STEP, OPS_LZHUF_LITERAL, OPS_LZHUF_MATCH, OPS_MTF_ENCODE,
+    OPS_MTF_INVERSE, OPS_MTF_MOVE, OPS_REACH_STEP, OPS_RLE2_RUN,
+    OPS_STAGE_WORD, OPS_SYMBOL_LITERAL, OPS_SYMBOL_MATCH, OPS_V1_EXTEND,
+    OPS_V1_VISIT, OPS_V3W_EXTEND, OPS_V3W_TOKEN, OPS_V3_EXTEND,
+    OPS_V3_TOKEN, bound, bound_bytes_ops)
+from tpz_torch.bench import make_corpus
+
 MIB = 1 << 20
 HEADLINE_BYTES = 16 * MIB
 HEADLINE_BUFFERS = 2
 LEVEL = 6
 TIMING_ITERS = 3
 LZHUF_METHOD = "lh5"
-# A kernel's bound is the larger of its bytes (each input read once, each
-# array the kernel writes written once) over the card's memory rate and
-# its int32 operations over the card's int32 rate. NVIDIA's H100 SXM
-# datasheet (700 W): 3.35 TB/s, and 67 T/s float32 outside the tensor
-# cores, i.e. 132 SMs x 128 FP32 lanes x 2 (an FMA) x 1.98 GHz. An SM has
-# 64 INT32 lanes (NVIDIA's Hopper architecture whitepaper), so int32
-# issues at 67e12 / 2 / 2 per second.
-HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 67e12 / 4
-# Operations per loop trip, counted by hand from the CUDA sources (each
-# add, shift, logical op, compare, select, min, max, load and store is
-# one) along the trip's shortest path: a level-2 escape, a lazy probe or
-# a corrupt-input clamp adds more, so the bound stays a least time.
-OPS_STAGE_WORD = 4         # Huffman walks: staging one table/slice word
-OPS_LZHUF_LITERAL = 44     # lzhuf_walk.cu: a token that is a literal
-OPS_LZHUF_MATCH = 108      # ... a match (p lookup, raw bits, marker)
-OPS_SYMBOL_LITERAL = 49    # symbol_walk.cu: a literal
-OPS_SYMBOL_MATCH = 137     # ... a match (length and distance extras)
-OPS_V1_VISIT = 31          # #4: a visited position (counted from the
-                           # serial walk; the function's own work)
-OPS_V1_EXTEND = 16         # ... one 4-byte extension compare
-OPS_V3_TOKEN = 15          # #1: a token on the mark fast path (counted
-                           # from the serial walk; the function's own work)
-OPS_V3_EXTEND = 12         # ... one 4-byte extension compare
-OPS_COPY_POSITION = 16     # #3: a position's state and its check
-                           # (counted from the serial copy machine)
-OPS_COPY_MATCHED = 12      # ... the copy of one matched position
-OPS_IBWT_STEP = 17         # #7: a node's step (its load, the successor
-                           # test, its byte out; the function's own work)
-OPS_REACH_STEP = 8         # #8: a visited position (its load, step, mark;
-                           # counted from the serial walk, the function's
-                           # own work)
-OPS_V3W_TOKEN = 36         # #9: a token through TOK and FIN of the serial
-                           # walk (the function's own work, whatever the
-                           # design)
-OPS_V3W_EXTEND = 12        # ... one 4-byte extension compare
-# The bzip2 symbol walk (#6) and the MTF encode are counted from the work
-# of the function itself, whatever the design: a move-to-front moves as
-# many list entries as the symbol's rank, which this run's data gives.
-OPS_HUFFMAN_SYMBOL = 5     # #6: peek the code's bits, table load, length,
-                           # bit position, group count
-OPS_RLE2_RUN = 2           # #6: a run symbol's shifted add to its run
-OPS_MTF_INVERSE = 4        # #6: a record's read at its rank, write at the
-                           # front, its compose and store
-OPS_MTF_ENCODE = 4         # MTF: a symbol's load, rank lookup, write at
-                           # the front and store of its rank
-OPS_MTF_MOVE = 1           # both: each list entry moved
 BZIP2_LEVEL = 9
 # The streaming phases: CodecStream writes of STREAM_RUN bytes (each an
 # Action.RUN, FLUSH or FINISH), a gzip flush every STREAM_FLUSH bytes, and
@@ -322,9 +298,7 @@ BZIP2_LEVEL = 9
 STREAM_RUN = MIB
 STREAM_FLUSH = 4 * MIB
 STREAM_PIECE = 64 * 1024
-# crc32_lanes: the operations counted for its bound are its byte-table
-# loads, one a byte; its chunk lengths timed at 16 MiB.
-OPS_CRC_BYTE = 1
+# crc32_lanes: its chunk lengths timed at 16 MiB.
 CRC_CHUNKS = (128, 256, 1024, 4096)
 # The iBWT's candidate splitter strides around the decode's own
 # (ibwt_walk.IBWT_SEG), timed at the headline; ibwt_stride.py times a
@@ -342,20 +316,6 @@ MTF_SEG_CHECK = 32
 # (one Python trip per symbol, ~2 ms each on the card).
 LONG_BLOCK_BYTES = 64 * 1024
 BZIP2_RING = 8192
-
-
-def _mixed(args):
-    from tpz_torch.utils import corpus
-
-    n, seed = args
-    return corpus.mixed(n, seed=seed)
-
-
-def make_corpus(specs):
-    """corpus.mixed buffers for (size, seed) pairs, in parallel."""
-    with multiprocessing.get_context("spawn").Pool(
-            min(len(specs), multiprocessing.cpu_count())) as pool:
-        return pool.map(_mixed, specs)
 
 
 def log(phase: str, **kv) -> None:
@@ -507,22 +467,6 @@ def walk_ops(markers, staged, literal, match) -> int:
             + int((kind == 2).sum()) * match)
 
 
-def bound(tensors, ops) -> dict:
-    """bound_ms and bound_by for a kernel call that reads or writes each
-    of `tensors` once and does `ops` operations."""
-    return bound_bytes_ops(sum(t.numel() * t.element_size()
-                               for t in tensors), ops)
-
-
-def bound_bytes_ops(nbytes, ops) -> dict:
-    """bound_ms and bound_by for a kernel call that moves `nbytes` and
-    does `ops` operations."""
-    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    ms_ops = ops / INT_OPS_PER_S * 1e3
-    return {"bound_ms": max(ms_bytes, ms_ops),
-            "bound_by": "bytes" if ms_bytes >= ms_ops else "operations"}
-
-
 def compare_parse(inputs, cfg, restart=None, host=False):
     """Kernel vs plain on the same CUDA tensors (at `restart` in place of
     the config's, where given; with `host`, the plain walk on host copies
@@ -615,7 +559,7 @@ def phase_slice(batch):
     return launches, blobs
 
 
-def phase_timing(batches, smi) -> None:
+def phase_timing(batches, smi) -> float:
     from tpz_torch import api
     from tpz_torch.codecs import gzip_codec
     from tpz_torch.codecs.deflate import DeflateConfig
@@ -639,6 +583,7 @@ def phase_timing(batches, smi) -> None:
         hdr + body + gzip_codec._trailer(d)
     split["host_framing"] = (time.perf_counter() - t0) * 1e3
     log("timing", **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
+    return total / median / 1e6
 
 
 def indexed_inputs(data):
@@ -2800,6 +2745,122 @@ def two_process_job(data, work_dir, span_bytes, device, formats, timeout):
     return out, dt
 
 
+BENCH_ROWS = ("deflate_decode_host", "deflate_encode_host",
+              "deflate_decode_device", "deflate_decode_device_batched",
+              "deflate_decode_device_foreign", "bzip2_encode_device",
+              "bzip2_decode_device", "bzip2_decode_host",
+              "lzhuf_encode_device", "lzhuf_encode_device_batched",
+              "lzhuf_decode_device", "lzhuf_decode_host")
+# A share of a roofline above this means the model counts work the path
+# never does.
+BENCH_PCT_MAX = 105.0
+# Phase 31(a)'s bytes a headline buffer, half the bench's default: the
+# bench's corpus is most of the phase, and at 16 MiB the script took
+# 929 s of its 1,200 on a slow host.
+BENCH_BYTES = 8 * MIB
+
+
+def run_bench(*args):
+    """python -m tpz_torch bench with `args` as a subprocess: (its stdout
+    lines, seconds); raises unless it exits 0."""
+    from tpz_torch import REPO_ROOT
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "tpz_torch", "bench", *args],
+                       capture_output=True, text=True, cwd=REPO_ROOT,
+                       env=dict(os.environ, PYTHONPATH=REPO_ROOT),
+                       timeout=900)
+    if r.returncode:
+        raise RuntimeError(f"bench {args}: exit {r.returncode}\n"
+                           f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    return r.stdout.strip().splitlines(), time.perf_counter() - t0
+
+
+def phase_bench(enc_mb_s, smi) -> None:
+    """python -m tpz_torch bench on the card. (a) At its defaults but
+    --bytes BENCH_BYTES: the last line under 1 KB, device_ran, a positive
+    value, backend "cuda"; every reference row without error or skip;
+    every roofline share of the kernel ceiling at most BENCH_PCT_MAX; the
+    headline GB/s x 1,000 within 0.5-2x of phase 5's gzip encode MB/s
+    (the same call on buffers of half the size).
+    (b) Headline only at 1 MiB, one batch, traced: the chrome trace in
+    its directory names the v3 parse walk's kernel."""
+    from tpz_torch import REPO_ROOT
+    from tpz_torch.kernels import parse
+    from tpz_torch.utils import roofline
+
+    torch.cuda.empty_cache()  # the subprocess needs the card's memory
+    lines, seconds = run_bench("--device", "cuda",
+                               "--bytes", str(BENCH_BYTES))
+    if len(lines[-1].encode()) >= 1024:
+        raise RuntimeError(f"bench: last line {len(lines[-1])} bytes")
+    last = json.loads(lines[-1])
+    if not (last["device_ran"] is True and last["backend"] == "cuda"
+            and isinstance(last["value"], float) and last["value"] > 0):
+        raise RuntimeError(f"bench: last line {last}")
+    detail = json.loads(lines[-2])["detail"]
+    rows = detail["extra_metrics"]
+    bad = [n for n in BENCH_ROWS
+           if n not in rows or "error" in rows[n] or "skipped" in rows[n]]
+    if bad:
+        raise RuntimeError(f"bench rows {bad}: "
+                           f"{ {n: rows.get(n) for n in bad} }")
+    priced = {"headline": detail["headline"],
+              **{n: rows[n] for n in roofline.MODELS if n in rows}}
+    if roofline.peaks(detail["card"]) is not None:
+        lacking = [n for n, row in priced.items() if "roofline" not in row]
+        over = {n: row["roofline"]["pct_of_kernel"]
+                for n, row in priced.items() if "roofline" in row
+                and row["roofline"]["pct_of_kernel"] > BENCH_PCT_MAX}
+        if lacking or over:
+            raise RuntimeError(f"bench roofline: missing {lacking}, "
+                               f"pct_of_kernel above {BENCH_PCT_MAX}: {over}")
+    head = detail["headline"]
+    ratio = last["value"] * 1e3 / enc_mb_s
+    if not 0.5 <= ratio <= 2.0:
+        raise RuntimeError(f"bench headline {last['value']} GB/s against "
+                           f"phase 5's {enc_mb_s:.2f} MB/s")
+    log("bench", bytes=head["bytes"], value_GB_s=last["value"],
+        median_s=head["median_s"],
+        all_s=head["all_s"], ratio=head["compression_ratio"],
+        vs_phase5=f"{ratio:.3f}", card=f"'{smi}'")
+    for name in BENCH_ROWS:
+        row = rows[name]
+        rl = row.get("roofline", {})
+        log("bench", row=name, MB_s=row["MB_s"],
+            MB_s_cold=row.get("MB_s_cold"),
+            pct_of_kernel=rl.get("pct_of_kernel"),
+            kernel_achievable_MB_s=rl.get("kernel_achievable_MB_s"),
+            dominant=json.dumps(rl.get("dominant_terms")).replace(" ", ""))
+    rl = head.get("roofline", {})
+    log("bench", row="headline", pct_of_kernel=rl.get("pct_of_kernel"),
+        kernel_achievable_MB_s=rl.get("kernel_achievable_MB_s"),
+        dominant=json.dumps(rl.get("dominant_terms")).replace(" ", ""))
+    log("bench", build=json.dumps(detail["build"]).replace(" ", ""),
+        rates=json.dumps(detail["rates"]).replace(" ", ""),
+        power=f"'{detail['card_power']}'", seconds=f"{seconds:.1f}")
+
+    build = os.path.join(REPO_ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        _, seconds = run_bench("--device", "cuda", "--headline-only",
+                               "--bytes", str(MIB), "--iters", "1",
+                               "--trace", tmp)
+        traces = [f for f in os.listdir(tmp) if f.endswith(".json")]
+        if len(traces) != 1:
+            raise RuntimeError(f"bench --trace wrote {traces}")
+        with open(os.path.join(tmp, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+    (kernel,) = parse.parse_extend_v3.kernels
+    found = [e["name"] for e in kernel_events(events)
+             if names_kernel(e["name"], kernel)]
+    if not found:
+        raise RuntimeError(f"bench trace: no {kernel} kernel among "
+                           f"{len(kernel_events(events))} kernel events")
+    log("bench", trace=traces[0], kernel=kernel, launches=len(found),
+        seconds=f"{seconds:.1f}")
+
+
 def main() -> int:
     import tpz_torch  # noqa: F401 — fails at once outside a checkout
     from tpz_torch.utils import corpus
@@ -2822,7 +2883,7 @@ def main() -> int:
              "repetitive": corpus.repetitive(MIB, seed=12)}
     kern = phase_kernel(batches[0], small)
     launches, blobs = phase_slice(batches[0])
-    phase_timing(batches[1:], smi)
+    enc_mb_s = phase_timing(batches[1:], smi)
     hdr_len = len(gzip_codec.header_bytes(LEVEL))
     walk, resolve = phase_decode_kernels(small, batches[0][0],
                                          blobs[0][hdr_len:-8])
@@ -2868,6 +2929,7 @@ def main() -> int:
     sharded_mtf = phase_sharded_bzip2(data64, smi)
     step_reach = phase_sharded_step(data64, bodies, smi)
     phase_distributed(data64, smi)
+    phase_bench(enc_mb_s, smi)
     log("total", script_s=f"{time.perf_counter() - start:.1f}")
     # Each kernel's launches come from its own main-path calls: gzip encode
     # and sharded_compress (#1), gzip decode (#2, #3), lh5 encode (#4), lh5
