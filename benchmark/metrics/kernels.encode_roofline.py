@@ -1,0 +1,8 @@
+"""Least time of the profiled encode requests' bytes at the card's
+bandwidth over their kernels' time, %."""
+
+from benchmark import readers
+
+
+def read(rec):
+    return readers.roofline_pct(rec, readers.ENCODE)
