@@ -167,7 +167,7 @@ _BENCH_MODULES = {
         "from tpz_torch.utils import profiling\n"
         "with tempfile.TemporaryDirectory() as d:\n"
         "    with profiling.trace(d, device='cpu'):\n"
-        "        with profiling.annotate('tpz_probe'):\n"
+        "        with profiling.span('tpz_probe'):\n"
         "            torch.ones(8).sum()\n"),
 }
 
@@ -176,7 +176,7 @@ _BENCH_MODULES = {
 def test_bench_modules_load_nothing_from_the_reference_package(module):
     """`tpz_torch.bench` (its oracle build and a headline batch on the
     CPU), `utils.roofline` (rates measured on the CPU, an annotation) and
-    `utils.profiling` (a CPU trace of an annotated region), each in a
+    `utils.profiling` (a CPU trace of a spanned region), each in a
     fresh interpreter: jax stays unloaded and no loaded module's file
     lies under tpz/."""
     oracle.build()  # so the child finds it

@@ -5,7 +5,9 @@ streaming shapes `CodecStream` (encode, with the crate's Action
 semantics) and `DecodeStream`. They run on the card (`device="cuda"`)
 unless the caller asks for the CPU (`device="cpu"`); "cuda" without a card
 raises. Raw LZSS runs on the host whatever the device, as in the
-reference."""
+reference. Each call of `compress`, `compress_many`, `decompress` and
+`decompress_many` is the span tpz_torch.api.<entry> (utils/profiling.py),
+around the spans of its codec's stages."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from tpz_torch.codecs import bzip2, deflate, gzip_codec, lzhuf, lzss
 from tpz_torch.codecs import zlib_codec
 from tpz_torch.errors import DataError, UnexpectedEof
 from tpz_torch.kernels.deflate_pipeline import _device
+from tpz_torch.utils.profiling import span
 
 # Each entry is called as fn(data(s), level, device=...) to encode and
 # fn(data(s), device=...) to decode. The LZHUF entries bind their method
@@ -69,7 +72,8 @@ def _lookup(table: dict, format: str):
 
 def compress(data: bytes, format: str = "gzip", level: int = 6, *,
              device="cuda") -> bytes:
-    return _lookup(_COMPRESS, format)(data, level, device=device)
+    with span("api.compress"):
+        return _lookup(_COMPRESS, format)(data, level, device=device)
 
 
 def compress_many(datas, format: str = "gzip", level: int = 6, *,
@@ -78,13 +82,15 @@ def compress_many(datas, format: str = "gzip", level: int = 6, *,
     buffer is its own stream. Formats without a batched encoder (raw
     LZSS) loop over the buffers."""
     fn = _lookup(_COMPRESS, format)
-    if format in _COMPRESS_MANY:
-        return _COMPRESS_MANY[format](datas, level, device=device)
-    return [fn(d, level, device=device) for d in datas]
+    with span("api.compress_many"):
+        if format in _COMPRESS_MANY:
+            return _COMPRESS_MANY[format](datas, level, device=device)
+        return [fn(d, level, device=device) for d in datas]
 
 
 def decompress(data: bytes, format: str = "gzip", *, device="cuda") -> bytes:
-    return _lookup(_DECOMPRESS, format)(data, device=device)
+    with span("api.decompress"):
+        return _lookup(_DECOMPRESS, format)(data, device=device)
 
 
 def decompress_many(datas, format: str = "gzip", *,
@@ -94,9 +100,10 @@ def decompress_many(datas, format: str = "gzip", *,
     every stream's blocks of one level bucket; other formats decode per
     buffer."""
     fn = _lookup(_DECOMPRESS, format)
-    if format in _DECOMPRESS_MANY:
-        return _DECOMPRESS_MANY[format](datas, device=device)
-    return [fn(d, device=device) for d in datas]
+    with span("api.decompress_many"):
+        if format in _DECOMPRESS_MANY:
+            return _DECOMPRESS_MANY[format](datas, device=device)
+        return [fn(d, device=device) for d in datas]
 
 
 # Formats whose streams concatenate into one logical stream for the

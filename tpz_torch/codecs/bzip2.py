@@ -18,7 +18,7 @@ from tpz_torch.errors import CompressionError, DataError, UnexpectedEof
 from tpz_torch.kernels import bzip2_pipeline
 from tpz_torch.kernels.bzip2_pipeline import (BLOCK_MAGIC, EOS_MAGIC,
                                               _peek_bits, _splice_eos)
-from tpz_torch.kernels.deflate_pipeline import _nohook
+from tpz_torch.utils.profiling import _nohook
 
 
 def compress(data: bytes, level: int = 9, *, device="cuda") -> bytes:

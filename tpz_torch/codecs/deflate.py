@@ -15,7 +15,7 @@ from dataclasses import dataclass
 
 from tpz_torch import errors, oracle
 from tpz_torch.kernels import deflate_pipeline, inflate_pipeline
-from tpz_torch.kernels.deflate_pipeline import _nohook
+from tpz_torch.utils.profiling import _nohook
 
 
 @dataclass(frozen=True)

@@ -4,7 +4,9 @@
 Decode handles FEXTRA/FNAME/FCOMMENT/FHCRC and multi-member streams. A
 member whose 'TZ' side-car passes the bounds checks takes the indexed
 route; any other member takes the segmented route
-(kernels/inflate_pipeline.py).
+(kernels/inflate_pipeline.py). The trailer checks after a decode are the
+stage "crc" (the span tpz_torch.gzip.crc); an encode's header, CRC-32,
+ISIZE and their join with the body are the span gzip.frame.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from tpz_torch import constants as C
 from tpz_torch import errors
 from tpz_torch.codecs import deflate
 from tpz_torch.kernels import inflate_pipeline as ip
-from tpz_torch.kernels.deflate_pipeline import _device, _nohook
+from tpz_torch.kernels.deflate_pipeline import _device
+from tpz_torch.utils.profiling import _nohook, span, stage
 
 _FTEXT, _FHCRC, _FEXTRA, _FNAME, _FCOMMENT = 1, 2, 4, 8, 16
 
@@ -58,11 +61,12 @@ def compress(data: bytes, level: int = 6, *, device="cuda", mtime: int = 0,
     MAX_DEVICE_SPAN) has no index, so its member carries no TZ extra."""
     body, block_bits, block_lens = deflate.compress_indexed(
         data, level=level, device=device)
-    extra = b""
-    if (index and block_bits is not None
-            and len(block_bits) <= _TZ_MAX_BLOCKS):
-        extra = _tz_extra(block_bits, block_lens)
-    return header_bytes(level, mtime, extra) + body + _trailer(data)
+    with span("gzip.frame"):
+        extra = b""
+        if (index and block_bits is not None
+                and len(block_bits) <= _TZ_MAX_BLOCKS):
+            extra = _tz_extra(block_bits, block_lens)
+        return header_bytes(level, mtime, extra) + body + _trailer(data)
 
 
 def compress_many(datas, level: int = 6, *, device="cuda",
@@ -70,8 +74,9 @@ def compress_many(datas, level: int = 6, *, device="cuda",
     """Batched gzip: device-batched DEFLATE bodies + per-buffer framing."""
     datas = list(datas)
     bodies = deflate.compress_many(datas, level=level, device=device)
-    header = header_bytes(level, mtime)
-    return [header + body + _trailer(d) for d, body in zip(datas, bodies)]
+    with span("gzip.frame"):
+        header = header_bytes(level, mtime)
+        return [header + body + _trailer(d) for d, body in zip(datas, bodies)]
 
 
 # ------------------------------------------------------------- decode
@@ -168,10 +173,10 @@ def decompress_member_prefix(data: bytes, off: int = 0, *, device="cuda",
         plain, consumed = deflate.decompress_prefix(
             data[pos:], device=device, stage_hook=stage_hook)
     tpos = pos + consumed
-    if len(data) - tpos < 8:
-        raise errors.UnexpectedEof("gzip trailer truncated")
-    _check_trailer(plain, *struct.unpack_from("<II", data, tpos))
-    stage_hook("crc")
+    with stage("gzip", "crc", stage_hook):
+        if len(data) - tpos < 8:
+            raise errors.UnexpectedEof("gzip trailer truncated")
+        _check_trailer(plain, *struct.unpack_from("<II", data, tpos))
     return plain, tpos + 8
 
 
@@ -203,17 +208,17 @@ def decompress_many(datas, *, device="cuda", stage_hook=_nohook) -> list[bytes]:
     if items:
         plains = ip.decompress_many_indexed(items, device,
                                             stage_hook=stage_hook)
-        pos = 0
-        for i, s in enumerate(scans):
-            if s is None:
-                continue
-            its, metas = s
-            part = plains[pos:pos + len(its)]
-            for plain, (crc, isize) in zip(part, metas):
-                _check_trailer(plain, crc, isize)
-            results[i] = b"".join(part)
-            pos += len(its)
-        stage_hook("crc")
+        with stage("gzip", "crc", stage_hook):
+            pos = 0
+            for i, s in enumerate(scans):
+                if s is None:
+                    continue
+                its, metas = s
+                part = plains[pos:pos + len(its)]
+                for plain, (crc, isize) in zip(part, metas):
+                    _check_trailer(plain, crc, isize)
+                results[i] = b"".join(part)
+                pos += len(its)
     for i, d in enumerate(datas):
         if results[i] is None:
             results[i] = decompress(d, device=device, stage_hook=stage_hook)
@@ -257,7 +262,7 @@ def _decompress_members_batched(data: bytes, device,
         return None
     items, metas = s
     plains = ip.decompress_many_indexed(items, device, stage_hook=stage_hook)
-    for plain, (crc, isize) in zip(plains, metas):
-        _check_trailer(plain, crc, isize)
-    stage_hook("crc")
+    with stage("gzip", "crc", stage_hook):
+        for plain, (crc, isize) in zip(plains, metas):
+            _check_trailer(plain, crc, isize)
     return b"".join(plains)

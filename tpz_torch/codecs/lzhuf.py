@@ -19,6 +19,7 @@ import struct
 from tpz_torch import constants as C
 from tpz_torch.errors import DataError, UnexpectedEof
 from tpz_torch.kernels import lzhuf_pipeline, lzhuf_walk
+from tpz_torch.utils.profiling import _nohook
 
 _MAGIC = b"TPZL"
 _HEADER = 15  # 4 magic + 3 method + 8 size
@@ -80,7 +81,7 @@ def decompress(data: bytes, method: str | None = None, *,
 
 
 def decompress_many(datas, method: str | None = None, *, device="cuda",
-                    stage_hook=lzhuf_walk._nohook) -> list[bytes]:
+                    stage_hook=_nohook) -> list[bytes]:
     """Batch decode: the buffers of each method share one device walk."""
     parsed = []
     for d in datas:

@@ -1,7 +1,8 @@
 """Batched bzip2 encode and decode on one torch device (port of
 tpz/kernels/bzip2_pipeline.py).
 
-ENCODE, stage by stage (the names `stage_hook` receives):
+ENCODE, stage by stage (each the span tpz_torch.bzip2.<name>, also in
+bzip2_walk and ibwt_walk; the names `stage_hook` receives):
   rle1          (host) RLE1 and the block split with block CRCs (C++)
   words         the blocks copied to the device as bytes, and their
                 cyclic 4-byte words built there (bwt.cyclic_words_device)
@@ -66,10 +67,11 @@ from tpz_torch.kernels import bzip2_walk
 from tpz_torch.kernels.bitpack import assemble_stream_msb
 from tpz_torch.kernels.bwt import bwt_batched, cyclic_words_device
 from tpz_torch.kernels.bzip2_plan_device import encode_blocks
-from tpz_torch.kernels.deflate_pipeline import _device, _nohook
+from tpz_torch.kernels.deflate_pipeline import _device
 from tpz_torch.kernels.ibwt_walk import ibwt_blocks_fast
 from tpz_torch.kernels.mtf import mtf_ranks
 from tpz_torch.kernels.rle import rle2_encode
+from tpz_torch.utils.profiling import _nohook, span, stage
 
 # Blocks per device dispatch: at N = 2^20 a block holds about 30 MB of
 # device memory through the decode's walk, expansion and sort, and about
@@ -93,7 +95,8 @@ host_symbol_decodes = 0
 def _host_decode(data: bytes) -> bytes:
     global host_declines
     host_declines += 1
-    return oracle.bzip2_decode(data)
+    with span("bzip2.host_decline"):
+        return oracle.bzip2_decode(data)
 
 
 def _bucket(n: int) -> int:
@@ -194,10 +197,11 @@ def group_inputs(datas, scans, N: int):
 def _decode_group(datas, items, N: int, device, stage_hook):
     """Decode the streams `items` ((index, scan)) of one bucket N.
     Returns {index: plaintext or None (declined)}."""
-    level = max(_max_level(datas[i]) for i, _ in items)
-    rec_cap = bzip2_walk.rec_cap_for(level)
-    scan, slices = group_inputs([datas[i] for i, _ in items],
-                                [s for _, s in items], N)
+    with span("bzip2.slices"):
+        level = max(_max_level(datas[i]) for i, _ in items)
+        rec_cap = bzip2_walk.rec_cap_for(level)
+        scan, slices = group_inputs([datas[i] for i, _ in items],
+                                    [s for _, s in items], N)
     nb = len(scan["sym_bits"])
     parts = []
     for b0 in range(0, nb, MAX_DISPATCH_BLOCKS):
@@ -205,27 +209,29 @@ def _decode_group(datas, items, N: int, device, stage_hook):
         parts.append(bzip2_walk.decode_blocks_device(
             part, slices[b0:b0 + MAX_DISPATCH_BLOCKS], N, device, rec_cap,
             stage_hook))
-    plain, lens, err, endbits = (parts[0] if len(parts) == 1 else
-                                 map(np.concatenate, zip(*parts)))
-    flat = plain.reshape(-1)
+    with span("bzip2.eos"):
+        plain, lens, err, endbits = (parts[0] if len(parts) == 1 else
+                                     map(np.concatenate, zip(*parts)))
+        flat = plain.reshape(-1)
     out = {}
     b0 = 0
     for i, s in items:
         cnt = len(s["sym_bits"])
         sl = slice(b0, b0 + cnt)
         out[i] = None
-        ok = np.count_nonzero(err[sl]) == 0 and _eos_ok(
-            datas[i], (s["sym_bits"] // 8) * 8 + endbits[sl].astype(np.int64),
-            s["crcs"])
-        stage_hook("eos")
+        with stage("bzip2", "eos", stage_hook):
+            ok = np.count_nonzero(err[sl]) == 0 and _eos_ok(
+                datas[i],
+                (s["sym_bits"] // 8) * 8 + endbits[sl].astype(np.int64),
+                s["crcs"])
         if ok:
-            try:
-                out[i] = oracle.bzip2_rle1_inverse(
-                    flat, np.arange(b0, b0 + cnt, dtype=np.int64) * N,
-                    lens[sl].astype(np.int64), s["crcs"])
-            except DataError:
-                pass
-            stage_hook("rle1-inverse")
+            with stage("bzip2", "rle1-inverse", stage_hook):
+                try:
+                    out[i] = oracle.bzip2_rle1_inverse(
+                        flat, np.arange(b0, b0 + cnt, dtype=np.int64) * N,
+                        lens[sl].astype(np.int64), s["crcs"])
+                except DataError:
+                    pass
         b0 += cnt
     return out
 
@@ -238,16 +244,16 @@ def decompress_walk_many(datas, device="cuda", stage_hook=_nohook) -> list:
     datas = [bytes(d) for d in datas]
     results = [None] * len(datas)
     groups = {}
-    for i, data in enumerate(datas):
-        if len(data) < 4:
-            continue
-        s = _scan_or_none(oracle.bzip2_scan_headers, data)
-        if s is None or len(s["sym_bits"]) == 0:
-            continue
-        N = _bucket(bzip2_walk.rec_cap_for(_max_level(data)))
-        if int(_spans(s).max()) <= N + SLICE_SLACK:
-            groups.setdefault(N, []).append((i, s))
-    stage_hook("scan")
+    with stage("bzip2", "scan", stage_hook):
+        for i, data in enumerate(datas):
+            if len(data) < 4:
+                continue
+            s = _scan_or_none(oracle.bzip2_scan_headers, data)
+            if s is None or len(s["sym_bits"]) == 0:
+                continue
+            N = _bucket(bzip2_walk.rec_cap_for(_max_level(data)))
+            if int(_spans(s).max()) <= N + SLICE_SLACK:
+                groups.setdefault(N, []).append((i, s))
     for N, items in groups.items():
         for i, out in _decode_group(datas, items, N, device,
                                     stage_hook).items():
@@ -362,17 +368,17 @@ def _fused_bwt_mtf(rows: torch.Tensor, n: torch.Tensor, stage_hook):
     """BWT, used-byte map, MTF and RLE2 of the uint8 rows [NB, N] with
     lengths n [NB] int32, on their device. Returns (orig, syms, sym_len,
     used, n_used)."""
-    w = cyclic_words_device(rows, n)
-    stage_hook("words")
-    last, orig = bwt_batched(w, n)
-    del w
-    stage_hook("bwt")
-    v, used = mtf_input(last, n)
-    ranks = mtf_ranks(v, n)
-    del last, v
-    stage_hook("mtf")
-    syms, sym_len = rle2_encode(ranks, n)
-    stage_hook("rle2")
+    with stage("bzip2", "words", stage_hook):
+        w = cyclic_words_device(rows, n)
+    with stage("bzip2", "bwt", stage_hook):
+        last, orig = bwt_batched(w, n)
+        del w
+    with stage("bzip2", "mtf", stage_hook):
+        v, used = mtf_input(last, n)
+        ranks = mtf_ranks(v, n)
+        del last, v
+    with stage("bzip2", "rle2", stage_hook):
+        syms, sym_len = rle2_encode(ranks, n)
     return orig, syms, sym_len, used, used.sum(dim=1, dtype=torch.int32)
 
 
@@ -383,32 +389,31 @@ def _encode_dispatch(blocks, pos: int, device, stage_hook):
     words uint32: the layout's words w0 onward, holding these blocks' bits
     and zeros elsewhere; body_off, total_bits [NB] int64: each block's bit
     offset in the layout and its length; the bit where the last ends)."""
-    rows, lens, crcs, first = block_rows(blocks)
-
     def dev(a):
         return torch.from_numpy(a).to(device)
 
-    n = dev(lens)
-    orig, syms, sym_len, used, n_used = _fused_bwt_mtf(dev(rows), n,
-                                                       stage_hook)
-    vals, nbits, total_bits = encode_blocks(
-        syms, sym_len, used, n_used, orig.to(torch.int32), dev(crcs))
-    del syms
-    stage_hook("plan")
-    tb = total_bits.cpu().numpy()
-    w0 = pos // 32
-    body_off = np.zeros_like(tb)
-    for b in range(tb.size):
-        if first[b]:
-            pos = (pos + 31) // 32 * 32 + 32
-        body_off[b] = pos
-        pos += int(tb[b])
-    words = assemble_stream_msb(vals, nbits, dev(body_off - 32 * w0),
-                                -(-pos // 32) - w0)
-    del vals, nbits
-    stage_hook("pack")
-    words = words.cpu().numpy().astype(np.uint32)
-    stage_hook("fetch")
+    with span("bzip2.words"):
+        rows, lens, crcs, first = block_rows(blocks)
+        n, rows = dev(lens), dev(rows)
+    orig, syms, sym_len, used, n_used = _fused_bwt_mtf(rows, n, stage_hook)
+    with stage("bzip2", "plan", stage_hook):
+        vals, nbits, total_bits = encode_blocks(
+            syms, sym_len, used, n_used, orig.to(torch.int32), dev(crcs))
+        del syms
+    with stage("bzip2", "pack", stage_hook):
+        tb = total_bits.cpu().numpy()
+        w0 = pos // 32
+        body_off = np.zeros_like(tb)
+        for b in range(tb.size):
+            if first[b]:
+                pos = (pos + 31) // 32 * 32 + 32
+            body_off[b] = pos
+            pos += int(tb[b])
+        words = assemble_stream_msb(vals, nbits, dev(body_off - 32 * w0),
+                                    -(-pos // 32) - w0)
+        del vals, nbits
+    with stage("bzip2", "fetch", stage_hook):
+        words = words.cpu().numpy().astype(np.uint32)
     return w0, words, body_off, tb, pos
 
 
@@ -440,12 +445,14 @@ def encode_layout(blocks, device, stage_hook=_nohook):
         w0, words, off, tb, pos = _encode_dispatch(
             blocks[g:g + MAX_DISPATCH_BLOCKS], pos, device, stage_hook)
         parts.append((w0, words, off, tb))
-    layout = np.zeros(max(w0 + w.size for w0, w, _, _ in parts), np.uint32)
-    for w0, words, _, _ in parts:
-        layout[w0:w0 + words.size] |= words
-    return (layout.astype(">u4").view(np.uint8),
-            np.concatenate([p[2] for p in parts]),
-            np.concatenate([p[3] for p in parts]))
+    with span("bzip2.frame"):
+        layout = np.zeros(max(w0 + w.size for w0, w, _, _ in parts),
+                          np.uint32)
+        for w0, words, _, _ in parts:
+            layout[w0:w0 + words.size] |= words
+        return (layout.astype(">u4").view(np.uint8),
+                np.concatenate([p[2] for p in parts]),
+                np.concatenate([p[3] for p in parts]))
 
 
 def compress_many(datas, level: int = 9, device="cuda",
@@ -458,26 +465,29 @@ def compress_many(datas, level: int = 9, device="cuda",
     datas = [bytes(d) for d in datas]
     results = [empty_stream(level) if not d else None for d in datas]
     todo = [i for i, d in enumerate(datas) if d]
-    # ctypes releases the GIL: the buffers' RLE1 runs on parallel threads.
-    with ThreadPoolExecutor(max(1, min(len(todo), os.cpu_count() or 1))) as pool:
+    # ctypes releases the GIL: the buffers' RLE1 runs on parallel threads,
+    # inside this thread's span.
+    with stage("bzip2", "rle1", stage_hook), ThreadPoolExecutor(
+            max(1, min(len(todo), os.cpu_count() or 1))) as pool:
         items = list(zip(todo, pool.map(
             lambda i: oracle.bzip2_rle1(datas[i], level), todo)))
-    stage_hook("rle1")
     if not items:
         return results
-    body, body_off, tb = encode_layout(stream_blocks([p for _, p in items]),
-                                       device, stage_hook)
+    with span("bzip2.words"):
+        blocks = stream_blocks([p for _, p in items])
+    body, body_off, tb = encode_layout(blocks, device, stage_hook)
     hdr = b"BZh" + bytes([0x30 + level])
-    b0 = 0
-    for i, (_, _, ln, crc) in items:
-        nb = ln.size
-        start_bit = int(body_off[b0]) - 32              # word-aligned
-        end_bit = int(body_off[b0 + nb - 1] + tb[b0 + nb - 1])
-        buf = bytearray(body[start_bit // 8:(end_bit + 7) // 8].tobytes())
-        buf[0:4] = hdr
-        results[i] = _splice_eos(buf, end_bit - start_bit, crc)
-        b0 += nb
-    stage_hook("frame")
+    with stage("bzip2", "frame", stage_hook):
+        b0 = 0
+        for i, (_, _, ln, crc) in items:
+            nb = ln.size
+            start_bit = int(body_off[b0]) - 32              # word-aligned
+            end_bit = int(body_off[b0 + nb - 1] + tb[b0 + nb - 1])
+            buf = bytearray(
+                body[start_bit // 8:(end_bit + 7) // 8].tobytes())
+            buf[0:4] = hdr
+            results[i] = _splice_eos(buf, end_bit - start_bit, crc)
+            b0 += nb
     return results
 
 

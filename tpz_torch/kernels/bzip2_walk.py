@@ -18,6 +18,8 @@ its initial MTF list. Then:
           (torch.repeat_interleave)
   sort    the LF-mapping vector of each block (ibwt_walk.ibwt_body)
   ibwt    the inverse BWT walk (CUDA kernel csrc/ibwt_walk.cu on a card)
+Each is the span tpz_torch.bzip2.<name> and the name `stage_hook`
+receives.
 
 meta[:, 1] (err) is the reference's decline bitmask: 1 a zero-length
 code, 2 selectors exhausted, 4 a symbol above end-of-block, 8 a run
@@ -34,8 +36,9 @@ import numpy as np
 import torch
 
 from tpz_torch.kernels import ibwt_walk
-from tpz_torch.kernels.deflate_pipeline import _device, _nohook
+from tpz_torch.kernels.deflate_pipeline import _device
 from tpz_torch.utils.bits import U32, as_u32, to_i32
+from tpz_torch.utils.profiling import _nohook, stage
 
 SEL_CAP = 18432
 GROUP = 50
@@ -451,19 +454,18 @@ def decode_blocks_device(scan: dict, slices: np.ndarray, N: int,
     walk's and the expansion's bits with 128 where the iBWT flags the
     block."""
     device = _device(device)
-    layout = block_layout(scan, slices)
-    stage_hook("slices")
-    t = {k: torch.from_numpy(v).to(device) for k, v in layout.items()}
-    stage_hook("h2d")
-    recs, meta = bzip2_walk(*(t[k] for k in WALK_ARGS),
-                            records_cap(N, rec_cap))
-    stage_hook("walk")
-    last, lens, err, orig = expand_records(recs, meta, t["origs"], N)
-    del recs
-    stage_hook("expand")
+    with stage("bzip2", "slices", stage_hook):
+        layout = block_layout(scan, slices)
+    with stage("bzip2", "h2d", stage_hook):
+        t = {k: torch.from_numpy(v).to(device) for k, v in layout.items()}
+    with stage("bzip2", "walk", stage_hook):
+        recs, meta = bzip2_walk(*(t[k] for k in WALK_ARGS),
+                                records_cap(N, rec_cap))
+    with stage("bzip2", "expand", stage_hook):
+        last, lens, err, orig = expand_records(recs, meta, t["origs"], N)
+        del recs
     plain, flag = ibwt_walk.ibwt_body(last, lens, orig,
                                       stage_hook=stage_hook)
-    err = err | (flag.to(torch.int64) << 7)
-    out = tuple(x.cpu().numpy() for x in (plain, lens, err, meta[:, 2]))
-    stage_hook("fetch")
-    return out
+    with stage("bzip2", "fetch", stage_hook):
+        err = err | (flag.to(torch.int64) << 7)
+        return tuple(x.cpu().numpy() for x in (plain, lens, err, meta[:, 2]))

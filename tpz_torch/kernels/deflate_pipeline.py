@@ -1,8 +1,12 @@
 """Batched DEFLATE encode on one torch device (port of
 tpz/kernels/deflate_pipeline.py, spec-v3 path).
 
-Stages, all on the device except the block-type scan and the framing:
-  words    haloed [NB, M] matrix of u32 little-endian 4-byte windows
+Stages, all on the device except the block-type scan and the framing
+(each the span tpz_torch.deflate.<name>; the names `stage_hook`
+receives):
+  words    haloed [NB, M] matrix of u32 little-endian 4-byte windows,
+           after the host layout (span deflate.layout) and its copy to the
+           device (span deflate.h2d)
   screen   sorted-space top-2 candidates (kernels/matchfinder.py)
   parse    the spec-v3 walk (kernels/parse.py; CUDA kernel on a card)
   plan     symbol histograms + Huffman planning (deflate_plan_device.py)
@@ -26,6 +30,7 @@ from tpz_torch.kernels.matchfinder import (BLOCK, FWD_PAD, MAX_MATCH, TOO_FAR,
                                            WINDOW, suffix_screen_w_chunked)
 from tpz_torch.kernels.parse import parse_extend_v3
 from tpz_torch.utils.bits import to_i32
+from tpz_torch.utils.profiling import _nohook, span, stage
 
 # Largest batch one invocation encodes; bigger batches split into groups.
 # A single buffer cannot split mid-stream (later blocks' bit offsets
@@ -47,7 +52,8 @@ def _host_encode(data: bytes, cfg, want_index: bool):
     want_index, (stream, None, None): it carries no block index."""
     global host_declines
     host_declines += 1
-    blob = oracle.deflate_encode(data, cfg.params_array())
+    with span("deflate.host_decline"):
+        blob = oracle.deflate_encode(data, cfg.params_array())
     return (blob, None, None) if want_index else blob
 
 
@@ -95,56 +101,54 @@ def _hist(sym: torch.Tensor, nbins: int) -> torch.Tensor:
     return h.reshape(NB, nbins + 1)[:, :nbins].to(torch.int32)
 
 
-def _nohook(stage: str) -> None:
-    pass
-
-
 def _fused_encode(span, span_off, span_len, block_len, buf_start, bfinal,
                   cfg, stage_hook):
     """span and the [NB] vectors on the device -> (words [total_words]
     int32 on the device, end_pos [NB] numpy: each block's end bit)."""
     sb = cfg.screen_bytes
-    words = _zero_past_end(_make_words(span), block_len, bfinal)
-    stage_hook("words")
-    pk1, pk2, cap_at = suffix_screen_w_chunked(
-        words, span_off, span_len, cfg.max_chain, WINDOW, BLOCK, MAX_MATCH,
-        sb, cfg.restart, SCREEN_CHUNK)
-    stage_hook("screen")
+    with stage("deflate", "words", stage_hook):
+        words = _zero_past_end(_make_words(span), block_len, bfinal)
+    with stage("deflate", "screen", stage_hook):
+        pk1, pk2, cap_at = suffix_screen_w_chunked(
+            words, span_off, span_len, cfg.max_chain, WINDOW, BLOCK,
+            MAX_MATCH, sb, cfg.restart, SCREEN_CHUNK)
     sl = slice(WINDOW, WINDOW + BLOCK)
-    visited, mlen, mdist = parse_extend_v3(
-        pk1[:, sl].contiguous(), pk2[:, sl].contiguous(),
-        cap_at[:, sl].contiguous(), words, block_len, WINDOW, MAX_MATCH, sb,
-        TOO_FAR, cfg.lazy, cfg.max_lazy, cfg.restart, cfg.n_extend,
-        PARSE_GROUP)
-    stage_hook("parse")
+    with stage("deflate", "parse", stage_hook):
+        visited, mlen, mdist = parse_extend_v3(
+            pk1[:, sl].contiguous(), pk2[:, sl].contiguous(),
+            cap_at[:, sl].contiguous(), words, block_len, WINDOW, MAX_MATCH,
+            sb, TOO_FAR, cfg.lazy, cfg.max_lazy, cfg.restart, cfg.n_extend,
+            PARSE_GROUP)
 
     NB = words.shape[0]
-    pos = torch.arange(BLOCK, device=words.device, dtype=torch.int32)
-    is_token = (visited > 0) & (pos < block_len[:, None])
-    data_block = words[:, sl] & 0xFF
-    is_match = is_token & (mlen > 0)
-    lsym, _, _ = bitpack.length_symbol(torch.clamp(mlen, 0, 258))
-    dsym, _, _ = bitpack.dist_symbol(torch.clamp(mdist, min=1))
-    lit_sym = torch.where(is_match, lsym, data_block)
-    lit_hist = _hist(torch.where(is_token, torch.clamp(lit_sym, 0, 287), 288),
-                     288)
-    dist_hist = _hist(torch.where(is_match, torch.clamp(dsym, 0, 29), 30), 30)
-    tables = {k: torch.from_numpy(v).to(words.device)
-              for k, v in plan_tables().items()}
-    plan = plan_device(lit_hist, dist_hist, block_len, buf_start, bfinal,
-                       tables, live=block_len > 0)
-    end_pos = plan["end_pos"].cpu().numpy()
-    stage_hook("plan")
+    with stage("deflate", "plan", stage_hook):
+        pos = torch.arange(BLOCK, device=words.device, dtype=torch.int32)
+        is_token = (visited > 0) & (pos < block_len[:, None])
+        data_block = words[:, sl] & 0xFF
+        is_match = is_token & (mlen > 0)
+        lsym, _, _ = bitpack.length_symbol(torch.clamp(mlen, 0, 258))
+        dsym, _, _ = bitpack.dist_symbol(torch.clamp(mdist, min=1))
+        lit_sym = torch.where(is_match, lsym, data_block)
+        lit_hist = _hist(torch.where(is_token, torch.clamp(lit_sym, 0, 287),
+                                     288), 288)
+        dist_hist = _hist(torch.where(is_match, torch.clamp(dsym, 0, 29),
+                                      30), 30)
+        tables = {k: torch.from_numpy(v).to(words.device)
+                  for k, v in plan_tables().items()}
+        plan = plan_device(lit_hist, dist_hist, block_len, buf_start, bfinal,
+                           tables, live=block_len > 0)
+        end_pos = plan["end_pos"].cpu().numpy()
 
-    table320 = torch.cat([plan["lit_cl"], plan["dist_cl"],
-                          torch.zeros((NB, 2), dtype=torch.int32,
-                                      device=words.device)], dim=1)
-    total_words = (int(end_pos[-1]) + 31) // 32
-    out = bitpack.assemble_stream_v2(
-        data_block, is_token, mlen, mdist, table320, plan["body_off"],
-        plan["btype"], block_len, plan["chunk1_off"],
-        (plan["hdr_vals"], plan["hdr_nbits"], plan["hdr_offs"]), total_words)
-    stage_hook("bitpack")
+    with stage("deflate", "bitpack", stage_hook):
+        table320 = torch.cat([plan["lit_cl"], plan["dist_cl"],
+                              torch.zeros((NB, 2), dtype=torch.int32,
+                                          device=words.device)], dim=1)
+        total_words = (int(end_pos[-1]) + 31) // 32
+        out = bitpack.assemble_stream_v2(
+            data_block, is_token, mlen, mdist, table320, plan["body_off"],
+            plan["btype"], block_len, plan["chunk1_off"],
+            (plan["hdr_vals"], plan["hdr_nbits"], plan["hdr_offs"]),
+            total_words)
     return to_i32(out), end_pos
 
 
@@ -236,28 +240,27 @@ def compress_many(datas, cfg, device, want_index: bool = False,
                 group_bytes += len(datas[i])
         return results
 
-    span, span_off, span_len, block_len, buf_start, bfinal, nbs = \
-        span_layout([datas[i] for i in idxs])
+    with span("deflate.words"):
+        with span("deflate.layout"):
+            layout = span_layout([datas[i] for i in idxs])
+        with span("deflate.h2d"):
+            args = [torch.from_numpy(a).to(device) for a in layout[:6]]
+    out_words, end_pos = _fused_encode(*args, cfg, stage_hook)
 
-    def dev(a):
-        return torch.from_numpy(a).to(device)
-
-    out_words, end_pos = _fused_encode(
-        dev(span), dev(span_off), dev(span_len), dev(block_len),
-        dev(buf_start), dev(bfinal), cfg, stage_hook)
-    body = out_words.cpu().numpy().view(np.uint8)
-
-    b0 = 0
-    start_bit = 0
-    for i, nb_i in zip(idxs, nbs):
-        end_bit = int(end_pos[b0 + nb_i - 1])
-        blob = body[start_bit // 8:(end_bit + 7) // 8].tobytes()
-        if want_index:
-            ends = end_pos[b0:b0 + nb_i].astype(np.int64) - start_bit
-            results[i] = (blob, ends, block_len[b0:b0 + nb_i].astype(np.int64))
-        else:
-            results[i] = blob
-        start_bit = (end_bit + 31) // 32 * 32
-        b0 += nb_i
-    stage_hook("fetch")
+    with stage("deflate", "fetch", stage_hook):
+        body = out_words.cpu().numpy().view(np.uint8)
+        block_len, nbs = layout[3], layout[6]
+        b0 = 0
+        start_bit = 0
+        for i, nb_i in zip(idxs, nbs):
+            end_bit = int(end_pos[b0 + nb_i - 1])
+            blob = body[start_bit // 8:(end_bit + 7) // 8].tobytes()
+            if want_index:
+                ends = end_pos[b0:b0 + nb_i].astype(np.int64) - start_bit
+                results[i] = (blob, ends,
+                              block_len[b0:b0 + nb_i].astype(np.int64))
+            else:
+                results[i] = blob
+            start_bit = (end_bit + 31) // 32 * 32
+            b0 += nb_i
     return results

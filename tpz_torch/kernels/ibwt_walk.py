@@ -29,7 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpz_torch.kernels.deflate_pipeline import _device, _nohook
+from tpz_torch.kernels.deflate_pipeline import _device
+from tpz_torch.utils.profiling import _nohook, stage
 
 MAX_N = 1 << 21           # keys hold the index in 21 bits
 # Splitter stride, below the reference's _seg_for(N) (2048 at N = 2^20): a
@@ -374,10 +375,10 @@ def ibwt_body(last, length, orig, seg: int = IBWT_SEG,
     (out [NB, N] uint8 plaintext rows, flag [NB] int32). A row is flagged
     where its LF map is not one cycle (a periodic block) or its length
     and orig pointer are out of range."""
-    w, start_g, length, valid = lf_inputs(last, length, orig)
-    stage_hook("sort")
-    out, flag = ibwt(w, start_g, length, seg)
-    stage_hook("ibwt")
+    with stage("bzip2", "sort", stage_hook):
+        w, start_g, length, valid = lf_inputs(last, length, orig)
+    with stage("bzip2", "ibwt", stage_hook):
+        out, flag = ibwt(w, start_g, length, seg)
     return out, flag | (~valid).to(torch.int32)
 
 

@@ -10,8 +10,11 @@ piece of the stream starts. Two routes give that:
               indexer (cpp InflateIndex) token-walks the stream once and
               cuts it into <= 64 KiB-output segments, with split-match
               carries; the segment scan builds their tables.
-Then, on the device, stage by stage (the names `stage_hook` receives):
-  scan         (host) header or segment scan and the slice layout
+Then, on the device, stage by stage (each the span
+tpz_torch.inflate.<name>; the names `stage_hook` receives):
+  scan         (host) header or segment scan and the slice layout; on the
+               segmented route after the segment index (index_stream,
+               span inflate.index)
   h2d          the layout copied to the device
   walk         symbol walk: every entry's Huffman stream decoded in
                parallel into markers [NB, BLOCK] (CUDA kernel on a card)
@@ -19,7 +22,8 @@ Then, on the device, stage by stage (the names `stage_hook` receives):
                the segmented route also the placement into dense output
   resolve      LZ77 copy machine over the dense markers (resolve_walk)
   fetch        device-to-host copy, cut per stream
-The callers check CRC-32 or Adler-32 on the result.
+The callers check CRC-32 or Adler-32 on the result. Each device batch,
+from its slice layout to its fetch, is one span inflate.batch.
 
 The reference declines two shapes to the host inflate: a valid tree that
 overflows the decode tables' L2 (`lit_bits < 0`), and a stream the
@@ -35,12 +39,13 @@ import torch
 from tpz_torch import constants as C
 from tpz_torch import errors, oracle
 from tpz_torch.kernels._build import SHARED_LIMIT
-from tpz_torch.kernels.deflate_pipeline import _device, _nohook
+from tpz_torch.kernels.deflate_pipeline import _device
 # Marker layout (resolve_walk's docstring): kind << 28 | payload, with
 # payload = byte for _KIND_LIT and dist << 9 | len for _KIND_MATCH.
 from tpz_torch.kernels.resolve_walk import (_KIND_LIT, _KIND_MATCH,
                                             resolve_dense)
 from tpz_torch.utils.bits import U32, as_u32
+from tpz_torch.utils.profiling import _nohook, span, stage
 
 BLOCK = 65536
 # Per-entry stream slice: an encoder block needs ~64 KiB plus its header;
@@ -65,7 +70,8 @@ host_declines = 0
 def _host_inflate(stream: bytes) -> tuple[bytes, int]:
     global host_declines
     host_declines += 1
-    return oracle.inflate(stream)
+    with span("inflate.host_decline"):
+        return oracle.inflate(stream)
 
 
 # ----------------------------------------------------------- symbol walk
@@ -542,13 +548,13 @@ def _decode_fused_fn(t: dict, stage_hook=_nohook) -> torch.Tensor:
     """Indexed route: entries are encoder blocks, every one but a stream's
     last exactly BLOCK long, so the [NB, BLOCK] marker space is the dense
     output space. Returns [NB * BLOCK] uint8."""
-    markers = symbol_walk(*_walk_args(t), walk_end_bit=t["walk_end_bit"])
-    stage_hook("walk")
-    markers = _materialize_fn(markers, *_materialize_args(t))
-    stage_hook("materialize")
-    out = resolve_dense(markers.reshape(-1))
-    stage_hook("resolve")
-    return out
+    with stage("inflate", "walk", stage_hook):
+        markers = symbol_walk(*_walk_args(t),
+                              walk_end_bit=t["walk_end_bit"])
+    with stage("inflate", "materialize", stage_hook):
+        markers = _materialize_fn(markers, *_materialize_args(t))
+    with stage("inflate", "resolve", stage_hook):
+        return resolve_dense(markers.reshape(-1))
 
 
 def _place_dense(markers, t: dict) -> torch.Tensor:
@@ -573,15 +579,15 @@ def _decode_segmented_fn(t: dict, stage_hook=_nohook) -> torch.Tensor:
     resolve. The reference's power-of-two bucketing of NB and of the dense
     length only bounded XLA recompiles and is not kept. Returns [total]
     uint8."""
-    markers = symbol_walk(*_walk_args(t), walk_end_bit=t["walk_end_bit"])
-    stage_hook("walk")
-    markers = _materialize_fn(markers, *_materialize_args(t),
-                              carry=t["carry"])
-    dense = _place_dense(markers, t)
-    stage_hook("materialize")
-    out = resolve_dense(dense)
-    stage_hook("resolve")
-    return out
+    with stage("inflate", "walk", stage_hook):
+        markers = symbol_walk(*_walk_args(t),
+                              walk_end_bit=t["walk_end_bit"])
+    with stage("inflate", "materialize", stage_hook):
+        markers = _materialize_fn(markers, *_materialize_args(t),
+                                  carry=t["carry"])
+        dense = _place_dense(markers, t)
+    with stage("inflate", "resolve", stage_hook):
+        return resolve_dense(dense)
 
 
 # ---------------------------------------------------------- host layout
@@ -727,29 +733,34 @@ def decompress_many_indexed(items, device, *, stage_hook=_nohook,
                 results, _wide):
         return results
 
-    scans, kept = {}, []
-    for i in idxs:
-        scan = oracle.inflate_scan_headers(items[i][0], np.asarray(items[i][1]))
-        if (scan["lit_bits"] < 0).any():
-            results[i] = _host_inflate(items[i][0])[0]
-            continue
-        scans[i] = scan
-        kept.append(i)
+    with span("inflate.scan"):
+        scans, kept = {}, []
+        for i in idxs:
+            scan = oracle.inflate_scan_headers(items[i][0],
+                                               np.asarray(items[i][1]))
+            if (scan["lit_bits"] < 0).any():
+                results[i] = _host_inflate(items[i][0])[0]
+                continue
+            scans[i] = scan
+            kept.append(i)
     if not kept:
         return results
-    layout = _indexed_layout(items, kept, scans)
-    stage_hook("scan")
-    t = _to_device(layout, device)
-    stage_hook("h2d")
-    flat = _decode_fused_fn(t, stage_hook).cpu().numpy()
-    b0 = 0
-    for i in kept:
-        nb = len(items[i][1])
-        # Every block but the last is BLOCK long: the output is contiguous.
-        n_out = int(np.sum(items[i][2]))
-        results[i] = flat[b0 * BLOCK:b0 * BLOCK + n_out].tobytes()
-        b0 += nb
-    stage_hook("fetch")
+    with span("inflate.batch"):
+        with stage("inflate", "scan", stage_hook):
+            layout = _indexed_layout(items, kept, scans)
+        with stage("inflate", "h2d", stage_hook):
+            t = _to_device(layout, device)
+        out = _decode_fused_fn(t, stage_hook)
+        with stage("inflate", "fetch", stage_hook):
+            flat = out.cpu().numpy()
+            b0 = 0
+            for i in kept:
+                nb = len(items[i][1])
+                # Every block but the last is BLOCK long: the output is
+                # contiguous.
+                n_out = int(np.sum(items[i][2]))
+                results[i] = flat[b0 * BLOCK:b0 * BLOCK + n_out].tobytes()
+                b0 += nb
     return results
 
 
@@ -759,8 +770,9 @@ def index_stream(stream: bytes, seg_out: int = BLOCK):
     not fit the device path. seg_out is the output length per segment:
     smaller segments give the walk more, shorter chains. An empty stream
     gives an index with no segments, which decodes to b""."""
-    idx = oracle.inflate_index(stream, seg_out=seg_out,
-                               max_span_bytes=SLICE_BYTES - 1024)
+    with span("inflate.index"):
+        idx = oracle.inflate_index(stream, seg_out=seg_out,
+                                   max_span_bytes=SLICE_BYTES - 1024)
     if idx is None or int(np.sum(idx["out_lens"])) > MAX_DECODE_SPAN_WIDE:
         return None
     return idx
@@ -798,27 +810,30 @@ def decompress_many_segmented(items, device, *, stage_hook=_nohook,
                 decode, results, _wide):
         return results
 
-    scans, kept = {}, []
-    for i in idxs:
-        stream, idx = items[i]
-        scan = oracle.inflate_scan_segments(
-            stream, idx["hdr_bits"], idx["seg_bits"], idx["end_bits"])
-        if (scan["lit_bits"] < 0).any():
-            results[i] = _host_inflate(stream)[0]
-            continue
-        scans[i] = scan
-        kept.append(i)
+    with span("inflate.scan"):
+        scans, kept = {}, []
+        for i in idxs:
+            stream, idx = items[i]
+            scan = oracle.inflate_scan_segments(
+                stream, idx["hdr_bits"], idx["seg_bits"], idx["end_bits"])
+            if (scan["lit_bits"] < 0).any():
+                results[i] = _host_inflate(stream)[0]
+                continue
+            scans[i] = scan
+            kept.append(i)
     if not kept:
         return results
-    layout = _segmented_layout(items, kept, scans)
-    stage_hook("scan")
-    t = _to_device(layout, device)
-    stage_hook("h2d")
-    flat = _decode_segmented_fn(t, stage_hook).cpu().numpy()
-    pos = 0
-    for i in kept:
-        n_out = int(np.sum(items[i][1]["out_lens"]))
-        results[i] = flat[pos:pos + n_out].tobytes()
-        pos += n_out
-    stage_hook("fetch")
+    with span("inflate.batch"):
+        with stage("inflate", "scan", stage_hook):
+            layout = _segmented_layout(items, kept, scans)
+        with stage("inflate", "h2d", stage_hook):
+            t = _to_device(layout, device)
+        out = _decode_segmented_fn(t, stage_hook)
+        with stage("inflate", "fetch", stage_hook):
+            flat = out.cpu().numpy()
+            pos = 0
+            for i in kept:
+                n_out = int(np.sum(items[i][1]["out_lens"]))
+                results[i] = flat[pos:pos + n_out].tobytes()
+                pos += n_out
     return results

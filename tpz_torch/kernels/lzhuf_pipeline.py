@@ -1,7 +1,8 @@
 """Batched LZHUF (LHA lh4-lh7) encode on one torch device (port of
 tpz/kernels/lzhuf_pipeline.py, the route its TPU path takes).
 
-Stages (the names `stage_hook` receives):
+Stages (each the span tpz_torch.lzhuf.<name>; the names `stage_hook`
+receives):
   blocks   every buffer's 32 KiB blocks with a halo of 2^dict_bits bytes
            before them (more than one block for lh7) and FWD bytes after
   screen   the spec-v1 hash screen (kernels/matchfinder.py)
@@ -25,9 +26,10 @@ import torch
 from tpz_torch import constants as C
 from tpz_torch import oracle
 from tpz_torch.kernels.bitpack import assemble_stream_msb
-from tpz_torch.kernels.deflate_pipeline import _device, _hist, _nohook
+from tpz_torch.kernels.deflate_pipeline import _device, _hist
 from tpz_torch.kernels.matchfinder import screen_candidates
 from tpz_torch.kernels.parse import parse_extend_v1
+from tpz_torch.utils.profiling import _nohook, stage
 
 BLOCK = 32768
 FWD = 512
@@ -75,26 +77,26 @@ def _stage1(blocks, span_off, span_len, block_len, k: int, window: int,
     [NB, BLOCK], c_hist [NB, NC], p_hist [NB, np_], ntokens [NB]) as the
     reference's _stage1 on its TPU route."""
     sl = slice(window, window + BLOCK)
-    bj, bs, words, _ = screen_candidates(blocks, span_off, span_len, k,
-                                         window, BLOCK, MAX_MATCH)
-    stage_hook("screen")
-    bjb = bj[:, sl].contiguous()
-    reach, mlen = parse_extend_v1(bs[:, sl].contiguous(), bjb, words,
-                                  block_len, window, max_match=MAX_MATCH)
-    stage_hook("parse")
-    pos = torch.arange(BLOCK, device=blocks.device, dtype=torch.int32)
-    is_token = (reach > 0) & (pos < block_len[:, None])
-    mdist = torch.where(mlen > 0, pos + window - bjb, 0)
-    ntokens = is_token.sum(dim=1, dtype=torch.int32)
-    is_match = is_token & (mlen > 0)
-    csym = torch.where(is_match, 256 + mlen - 3,
-                       blocks[:, sl].to(torch.int32))
-    psym = _bitlen16(torch.clamp(mdist, min=1) - 1)
-    c_hist = _hist(torch.where(is_token, torch.clamp(csym, 0, NC - 1), NC),
-                   NC)
-    p_hist = _hist(torch.where(is_match, torch.clamp(psym, 0, np_ - 1), np_),
-                   np_)
-    stage_hook("hist")
+    with stage("lzhuf", "screen", stage_hook):
+        bj, bs, words, _ = screen_candidates(blocks, span_off, span_len, k,
+                                             window, BLOCK, MAX_MATCH)
+    with stage("lzhuf", "parse", stage_hook):
+        bjb = bj[:, sl].contiguous()
+        reach, mlen = parse_extend_v1(bs[:, sl].contiguous(), bjb, words,
+                                      block_len, window, max_match=MAX_MATCH)
+    with stage("lzhuf", "hist", stage_hook):
+        pos = torch.arange(BLOCK, device=blocks.device, dtype=torch.int32)
+        is_token = (reach > 0) & (pos < block_len[:, None])
+        mdist = torch.where(mlen > 0, pos + window - bjb, 0)
+        ntokens = is_token.sum(dim=1, dtype=torch.int32)
+        is_match = is_token & (mlen > 0)
+        csym = torch.where(is_match, 256 + mlen - 3,
+                           blocks[:, sl].to(torch.int32))
+        psym = _bitlen16(torch.clamp(mdist, min=1) - 1)
+        c_hist = _hist(torch.where(is_token, torch.clamp(csym, 0, NC - 1),
+                                   NC), NC)
+        p_hist = _hist(torch.where(is_match, torch.clamp(psym, 0, np_ - 1),
+                                   np_), np_)
     return mlen, mdist, is_token, c_hist, p_hist, ntokens
 
 
@@ -158,9 +160,9 @@ def compress_many(datas, method: str = "lh5", device="cuda", *,
 
 
 def _encode_group(datas, dict_bits, np_, window, device, stage_hook) -> list[bytes]:
-    blocks, span_off, span_len, block_len, nbs = make_blocks(
-        datas, window, device)
-    stage_hook("blocks")
+    with stage("lzhuf", "blocks", stage_hook):
+        blocks, span_off, span_len, block_len, nbs = make_blocks(
+            datas, window, device)
 
     def dev(a):
         return torch.from_numpy(a).to(device)
@@ -168,25 +170,25 @@ def _encode_group(datas, dict_bits, np_, window, device, stage_hook) -> list[byt
     mlen, mdist, is_token, c_hist, p_hist, ntokens = _stage1(
         blocks, dev(span_off), dev(span_len), dev(block_len), MAX_CHAIN,
         window, np_, stage_hook)
-    c_hist_np = c_hist.cpu().numpy().astype(np.uint32)
-    p_hist_np = p_hist.cpu().numpy().astype(np.uint32)
-    ntokens_np = ntokens.cpu().numpy().astype(np.uint32)
+    with stage("lzhuf", "plan", stage_hook):
+        c_hist_np = c_hist.cpu().numpy().astype(np.uint32)
+        p_hist_np = p_hist.cpu().numpy().astype(np.uint32)
+        ntokens_np = ntokens.cpu().numpy().astype(np.uint32)
 
-    # Per-buffer host plans; each buffer's stream at a word-aligned region
-    # of the shared output.
-    body_off = np.zeros(len(block_len), np.int64)
-    plans, region_bits = [], []
-    pos_bits = r0 = 0
-    for nb in nbs:
-        sl = slice(r0, r0 + nb)
-        plan = oracle.lzhuf_plan(c_hist_np[sl], p_hist_np[sl],
-                                 ntokens_np[sl], dict_bits)
-        body_off[sl] = plan["body_off"] + pos_bits
-        plans.append(plan)
-        region_bits.append(pos_bits)
-        pos_bits += (plan["total_bits"] + 31) // 32 * 32
-        r0 += nb
-    stage_hook("plan")
+        # Per-buffer host plans; each buffer's stream at a word-aligned
+        # region of the shared output.
+        body_off = np.zeros(len(block_len), np.int64)
+        plans, region_bits = [], []
+        pos_bits = r0 = 0
+        for nb in nbs:
+            sl = slice(r0, r0 + nb)
+            plan = oracle.lzhuf_plan(c_hist_np[sl], p_hist_np[sl],
+                                     ntokens_np[sl], dict_bits)
+            body_off[sl] = plan["body_off"] + pos_bits
+            plans.append(plan)
+            region_bits.append(pos_bits)
+            pos_bits += (plan["total_bits"] + 31) // 32 * 32
+            r0 += nb
     # The exact word count: regions are cut out by bit offset below (the
     # reference rounds it up only to bound XLA recompiles).
     total_words = max(1, -(-pos_bits // 32))
@@ -194,18 +196,18 @@ def _encode_group(datas, dict_bits, np_, window, device, stage_hook) -> list[byt
     def table(key):
         return dev(np.concatenate([p[key] for p in plans]).astype(np.int32))
 
-    words = _stage2(blocks[:, window:window + BLOCK].to(torch.int32),
-                    is_token, mlen, mdist, table("c_len"), table("c_code"),
-                    table("p_len"), table("p_code"), dev(body_off),
-                    total_words)
-    stage_hook("pack")
-    body = words.cpu().numpy().astype(">u4").view(np.uint8)  # MSB first
-    stage_hook("fetch")
-    out = []
-    for plan, rb in zip(plans, region_bits):
-        total_bytes = (plan["total_bits"] + 7) // 8
-        b = plan["header"][:total_bytes].copy()
-        b |= body[rb // 8:rb // 8 + total_bytes]
-        out.append(b.tobytes())
-    stage_hook("merge")
+    with stage("lzhuf", "pack", stage_hook):
+        words = _stage2(blocks[:, window:window + BLOCK].to(torch.int32),
+                        is_token, mlen, mdist, table("c_len"),
+                        table("c_code"), table("p_len"), table("p_code"),
+                        dev(body_off), total_words)
+    with stage("lzhuf", "fetch", stage_hook):
+        body = words.cpu().numpy().astype(">u4").view(np.uint8)  # MSB first
+    with stage("lzhuf", "merge", stage_hook):
+        out = []
+        for plan, rb in zip(plans, region_bits):
+            total_bytes = (plan["total_bits"] + 7) // 8
+            b = plan["header"][:total_bytes].copy()
+            b |= body[rb // 8:rb // 8 + total_bytes]
+            out.append(b.tobytes())
     return out

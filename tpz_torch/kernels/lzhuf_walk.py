@@ -5,7 +5,7 @@ The DEFLATE segmented route's analogue: the host token indexer (cpp
 LzhufIndex) walks the token stream once, writing no output, and cuts it
 into token-aligned segments of at most 64 KiB of output (also at every
 block's table change) with split-match carries; then, stage by stage
-(the names `stage_hook` receives):
+(each the span tpz_torch.lzhuf.<name>; the names `stage_hook` receives):
   index        (host) the token indexer
   tables       (host) each block's two-level decode tables (build_tables)
   layout       (host) per-segment stream slices and fused table rows
@@ -37,12 +37,13 @@ import torch
 
 from tpz_torch import constants as C
 from tpz_torch import oracle
-from tpz_torch.kernels.deflate_pipeline import _device, _nohook
+from tpz_torch.kernels.deflate_pipeline import _device
 from tpz_torch.kernels._build import SHARED_LIMIT
 from tpz_torch.kernels.inflate_pipeline import (BLOCK, _KIND_LIT, _KIND_MATCH,
                                                 _materialize_fn, _place_dense,
                                                 _to_device)
 from tpz_torch.kernels.resolve_walk import resolve_dense
+from tpz_torch.utils.profiling import _nohook, span, stage
 from tpz_torch.utils.bits import U32, as_u32, to_i32
 
 NC = C.LZHUF_NC
@@ -65,7 +66,8 @@ host_declines = 0
 def _host_decode(data: bytes, orig_size: int, dict_bits: int) -> bytes:
     global host_declines
     host_declines += 1
-    return oracle.lzhuf_decode(data, orig_size, dict_bits)
+    with span("lzhuf.host_decline"):
+        return oracle.lzhuf_decode(data, orig_size, dict_bits)
 
 
 def build_tables(lens: np.ndarray, consts: np.ndarray, nsym: int):
@@ -494,13 +496,12 @@ def _dense_markers(markers, t: dict) -> torch.Tensor:
 def _decode(t: dict, stage_hook=_nohook) -> torch.Tensor:
     """Walk, materialize and place, resolve with dist_bias=1. Returns
     [total rounded up to 128] uint8."""
-    markers = lzhuf_walk(*_walk_args(t), walk_end_bit=t["walk_end_bit"])
-    stage_hook("walk")
-    dense = _dense_markers(markers, t)
-    stage_hook("materialize")
-    out = resolve_dense(dense, dist_bias=1)
-    stage_hook("resolve")
-    return out
+    with stage("lzhuf", "walk", stage_hook):
+        markers = lzhuf_walk(*_walk_args(t), walk_end_bit=t["walk_end_bit"])
+    with stage("lzhuf", "materialize", stage_hook):
+        dense = _dense_markers(markers, t)
+    with stage("lzhuf", "resolve", stage_hook):
+        return resolve_dense(dense, dist_bias=1)
 
 
 # ---------------------------------------------------------- host layout
@@ -571,21 +572,22 @@ def decompress_many(items, dict_bits: int, device="cuda", *,
     items = list(items)
     results = [None] * len(items)
     cand = []
-    for i, (data, orig_size) in enumerate(items):
-        if orig_size == 0:
-            results[i] = b""
-            continue
-        idx = (oracle.lzhuf_index(data, orig_size, dict_bits, seg_out=BLOCK)
-               if orig_size <= MAX_STREAM else None)
-        if idx is None or len(idx["out_lens"]) == 0:
-            results[i] = _host_decode(data, orig_size, dict_bits)
-            continue
-        spans = (idx["end_bits"] + 7) // 8 + 1 - idx["seg_bits"] // 8
-        if int(spans.max()) > SLICE_BYTES:
-            results[i] = _host_decode(data, orig_size, dict_bits)
-            continue
-        cand.append((i, idx, spans))
-    stage_hook("index")
+    with stage("lzhuf", "index", stage_hook):
+        for i, (data, orig_size) in enumerate(items):
+            if orig_size == 0:
+                results[i] = b""
+                continue
+            idx = (oracle.lzhuf_index(data, orig_size, dict_bits,
+                                      seg_out=BLOCK)
+                   if orig_size <= MAX_STREAM else None)
+            if idx is None or len(idx["out_lens"]) == 0:
+                results[i] = _host_decode(data, orig_size, dict_bits)
+                continue
+            spans = (idx["end_bits"] + 7) // 8 + 1 - idx["seg_bits"] // 8
+            if int(spans.max()) > SLICE_BYTES:
+                results[i] = _host_decode(data, orig_size, dict_bits)
+                continue
+            cand.append((i, idx, spans))
     _decode_groups(items, cand, dict_bits, device, results, stage_hook)
     return results
 
@@ -603,26 +605,28 @@ def _decode_groups(items, cand, dict_bits, device, results,
             _decode_groups(items, part, dict_bits, device, results,
                            stage_hook)
         return
-    np_ = oracle._lzhuf_np(dict_bits)
-    entries, kept = [], []
-    for i, idx, spans in cand:
-        rows = _segment_tables(idx, np_)
-        if rows is None:
-            results[i] = _host_decode(items[i][0], items[i][1], dict_bits)
-            continue
-        entries.append((items[i][0], idx, spans, rows))
-        kept.append(i)
-    stage_hook("tables")
+    with stage("lzhuf", "tables", stage_hook):
+        np_ = oracle._lzhuf_np(dict_bits)
+        entries, kept = [], []
+        for i, idx, spans in cand:
+            rows = _segment_tables(idx, np_)
+            if rows is None:
+                results[i] = _host_decode(items[i][0], items[i][1],
+                                          dict_bits)
+                continue
+            entries.append((items[i][0], idx, spans, rows))
+            kept.append(i)
     if not kept:
         return
-    layout = _layout(entries)
-    stage_hook("layout")
-    t = _to_device(layout, device)
-    stage_hook("h2d")
-    flat = _decode(t, stage_hook).cpu().numpy()
-    pos = 0
-    for i in kept:
-        n_out = items[i][1]
-        results[i] = flat[pos:pos + n_out].tobytes()
-        pos += n_out
-    stage_hook("fetch")
+    with stage("lzhuf", "layout", stage_hook):
+        layout = _layout(entries)
+    with stage("lzhuf", "h2d", stage_hook):
+        t = _to_device(layout, device)
+    out = _decode(t, stage_hook)
+    with stage("lzhuf", "fetch", stage_hook):
+        flat = out.cpu().numpy()
+        pos = 0
+        for i in kept:
+            n_out = items[i][1]
+            results[i] = flat[pos:pos + n_out].tobytes()
+            pos += n_out

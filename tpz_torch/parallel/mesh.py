@@ -27,6 +27,7 @@ import torch
 
 from tpz_torch import oracle
 from tpz_torch.kernels.deflate_pipeline import _device
+from tpz_torch.utils.profiling import _nohook
 
 FWD = 512  # forward pad of the encode step's rows
 
@@ -249,7 +250,7 @@ def sharded_compress(data: bytes, mesh: Mesh, k: int = 32,
             layout = dp.span_layout([chunk])
             words, end_pos = dp._fused_encode(
                 *(torch.from_numpy(a).to(dev) for a in layout[:6]), cfg,
-                dp._nohook)
+                _nohook)
             body = words.view(torch.uint8)[:(int(end_pos[-1]) + 7) // 8]
         else:
             body = pay[:0]
