@@ -5,6 +5,7 @@
 LHA archives carry the original size in the archive header).
 `compress` / `decompress` add the reference's minimal container: magic
 b"TPZL", the 3-byte method name, the original size as <Q, the body.
+Adding and parsing that container is the span lzhuf.frame.
 
 There is no "auto" and no fallback: `device` names where the work runs
 and a CUDA device without a card raises. Decode declines only the shapes
@@ -19,7 +20,7 @@ import struct
 from tpz_torch import constants as C
 from tpz_torch.errors import DataError, UnexpectedEof
 from tpz_torch.kernels import lzhuf_pipeline, lzhuf_walk
-from tpz_torch.utils.profiling import _nohook
+from tpz_torch.utils.profiling import _nohook, span
 
 _MAGIC = b"TPZL"
 _HEADER = 15  # 4 magic + 3 method + 8 size
@@ -48,7 +49,9 @@ def raw_decompress(data: bytes, orig_size: int, method: str = "lh5", *,
 
 
 def compress(data: bytes, method: str = "lh5", *, device="cuda") -> bytes:
-    return _container(method, data, raw_compress(data, method, device=device))
+    body = raw_compress(data, method, device=device)
+    with span("lzhuf.frame"):
+        return _container(method, data, body)
 
 
 def compress_many(datas, method: str = "lh5", *,
@@ -57,7 +60,8 @@ def compress_many(datas, method: str = "lh5", *,
     _dict_bits(method)
     datas = list(datas)
     bodies = lzhuf_pipeline.compress_many(datas, method, device)
-    return [_container(method, d, b) for d, b in zip(datas, bodies)]
+    with span("lzhuf.frame"):
+        return [_container(method, d, b) for d, b in zip(datas, bodies)]
 
 
 def _parse(data: bytes, method: str | None):
@@ -76,7 +80,8 @@ def decompress(data: bytes, method: str | None = None, *,
                device="cuda") -> bytes:
     if len(data) < _HEADER:
         raise UnexpectedEof("lzhuf container too short")
-    m, size, body = _parse(data, method)
+    with span("lzhuf.frame"):
+        m, size, body = _parse(data, method)
     return raw_decompress(body, size, m, device=device)
 
 
@@ -84,10 +89,11 @@ def decompress_many(datas, method: str | None = None, *, device="cuda",
                     stage_hook=_nohook) -> list[bytes]:
     """Batch decode: the buffers of each method share one device walk."""
     parsed = []
-    for d in datas:
-        if len(d) < _HEADER:
-            raise DataError("bad lzhuf container magic")
-        parsed.append(_parse(d, method))
+    with span("lzhuf.frame"):
+        for d in datas:
+            if len(d) < _HEADER:
+                raise DataError("bad lzhuf container magic")
+            parsed.append(_parse(d, method))
     results = [None] * len(parsed)
     by_bits = {}
     for i, (m, _, _) in enumerate(parsed):
