@@ -21,7 +21,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
   4. slice    tpz_torch.api.compress_many on 2 x 16 MiB of corpus.mixed,
               gzip level 6, device "cuda": bodies equal the oracle's bytes,
               gzip.decompress round-trips, the parse walk and the screen
-              launched
+              launched, the pack kernel once
   5. timing   warm median of 3 iterations on fresh seeds (MB/s), and a
               per-stage split from CUDA events
   6. decode-kernels
@@ -174,7 +174,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
  21. encode-profile
               one warm gzip encode call of the headline batch under
               torch.profiler (as phase 12; the trace must hold the parse
-              walk's and the screen's kernels)
+              walk's, the screen's and the pack's kernels)
  22. stream-encode
               api.CodecStream on the card: gzip on phase 4's first 16 MiB
               buffer in 1 MiB writes (Action.RUN, then FINISH) equals
@@ -214,8 +214,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
               tpz_torch.parallel.mesh.sharded_compress of 64 MiB (the
               first four headline buffers) on make_mesh(4): four 16 MiB
               shards on cuda:0, one gzip member each, equal to members
-              built from oracle.deflate_encode; gzip reads it; #1 launched
-              4 times, the screen kernel once a chunk of SCREEN_CHUNK rows
+              built from oracle.deflate_encode; gzip reads it; #1 and the
+              pack kernel launched 4 times, the screen kernel once a chunk
+              of SCREEN_CHUNK rows
               of each shard, no host decline; warm median of 3 (MB/s); the
               ratio cost of the cut against one member of the whole 64 MiB
  28. sharded-bzip2
@@ -255,9 +256,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
               launches alone (mean of 5) and the plain screen (one call)
               timed, the scans beside their bound (the permutation and the
               words read once, pk1 and pk2 written once, at 3.35 TB/s)
+ 33. bitpack-kernel (runs after phase 32)
+              the DEFLATE bit packer's kernel (bitpack.pack_deflate)
+              against the plain packer (assemble_stream_v2) on the inputs
+              one headline gzip encode's plan stage makes, level 6: every
+              word equal, one launch a call; the wrapper (mean of 5), the
+              launch alone on the same words (mean of 5; it leaves them as
+              they are) and the plain packer (one call) timed, the launch
+              beside its bound (its inputs read once, the words written
+              once, at 3.35 TB/s)
 The last phase line gives the script's seconds so far. A JSON record of
 the kernels (launches from each one's main-path calls:
-gzip encode and sharded_compress, gzip decode, lh5 encode, lh5 decode,
+gzip encode and sharded_compress (#1, the screen and the pack), gzip decode, lh5 encode, lh5 decode,
 bzip2 decode, the public functions of #8 (and sharded_encode_step) and
 #9, bzip2 encode and sharded_compress_bzip2, checksums.crc32; times and
 bounds at the headline shapes) comes before the card's name and power
@@ -606,16 +616,67 @@ def phase_screen_kernel(headline):
     return {"max_abs_err": 0, "ms": scan_ms, "plain_ms": plain_ms, **b}
 
 
+def phase_bitpack_kernel(headline):
+    """Phase 33: the DEFLATE bit packer's kernel against the plain packer
+    at the headline layout, level 6, on the inputs the encode's own plan
+    stage makes (caught from one gzip encode call); the wrapper, the
+    launch alone and the plain packer timed, the launch beside its
+    bound."""
+    from tpz_torch.codecs.deflate import DeflateConfig
+    from tpz_torch.kernels import bitpack
+    from tpz_torch.kernels import deflate_pipeline as dp
+
+    pack, launch = bitpack.pack_deflate, bitpack._pack_launch
+    seen = []
+    bitpack._pack_launch = lambda *a: seen.append(a) or launch(*a)
+    try:
+        dp.compress_many(headline, DeflateConfig(level=LEVEL), "cuda")
+    finally:
+        bitpack._pack_launch = launch
+    (*args, words), = seen
+    args = (*args, words.numel())
+    before = pack.launches
+    got, cold_ms = timed(lambda: pack(*args))
+    if pack.launches != before + 1:
+        raise RuntimeError(f"pack wrapper launched "
+                           f"{pack.launches - before} times")
+    want, plain_ms = timed(lambda: bitpack.to_i32(
+        bitpack.assemble_stream_v2(*args)))
+    differ = int((got != want).sum())
+    if differ:
+        raise RuntimeError(f"pack kernel disagrees with plain: {differ} of "
+                           f"{want.numel()} words")
+    del want
+    _, ms = timed(lambda: pack(*args), 5)
+    # The launch alone, again and again on the same words: each launch
+    # stores or ORs the same bits, so the words stay as they were.
+    words = got.clone()
+    _, launch_ms = timed(lambda: launch(*args[:10], words), 5)
+    if not torch.equal(words, got):
+        raise RuntimeError("pack launches alone disagree with the wrapper")
+    # Read once: the four position arrays, the table, the row vectors and
+    # the header slots; written once: the words.
+    b = bound([*args[:9], *args[9], got], 0)
+    NB = args[0].shape[0]
+    log("bitpack-kernel", blocks=NB, level=LEVEL, words=got.numel(),
+        words_differ=0, wrapper_ms=f"{ms:.3f}",
+        first_call_ms=f"{cold_ms:.3f}", launch_ms=f"{launch_ms:.3f}",
+        plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b['bound_ms']:.4f}")
+    return {"max_abs_err": 0, "ms": launch_ms, "plain_ms": plain_ms, **b}
+
+
 def phase_slice(batch):
     from tpz_torch import api, oracle
     from tpz_torch.codecs import gzip_codec
     from tpz_torch.codecs.deflate import DeflateConfig
+    from tpz_torch.kernels import bitpack
     from tpz_torch.kernels import matchfinder as mf
     from tpz_torch.kernels import parse
 
     blobs, dt, c = drive("slice", "gzip-encode", lambda: api.compress_many(
         batch, "gzip", level=LEVEL, device="cuda"),
-        {"parse": parse.parse_extend_v3, "screen": mf.suffix_screen})
+        {"parse": parse.parse_extend_v3, "screen": mf.suffix_screen,
+         "pack": bitpack.pack_deflate})
     refs = oracle.deflate_encode_many(batch,
                                       DeflateConfig(LEVEL).params_array())
     hdr = gzip_codec.header_bytes(LEVEL)
@@ -628,7 +689,11 @@ def phase_slice(batch):
     ratio = sum(len(b) for b in blobs) / sum(len(d) for d in batch)
     log("slice", buffers=len(batch), bytes=sum(len(d) for d in batch),
         ratio=f"{ratio:.4f}", cold_s=f"{dt:.3f}", parse_launches=c["parse"],
-        screen_launches=c["screen"], oracle_identical=True)
+        screen_launches=c["screen"], pack_launches=c["pack"],
+        oracle_identical=True)
+    if c["pack"] != 1:
+        raise RuntimeError(f"slice: the pack kernel launched {c['pack']} "
+                           f"times (want 1)")
     return c, blobs
 
 
@@ -1047,13 +1112,15 @@ def phase_encode_profile(batch) -> None:
     kernel time and the call's idle share. It runs after phase 20, for
     the reason phase 20 runs last."""
     from tpz_torch import api
+    from tpz_torch.kernels import bitpack
     from tpz_torch.kernels import matchfinder as mf
     from tpz_torch.kernels import parse
 
     profile_call(lambda: api.compress_many(batch, "gzip", level=LEVEL,
                                            device="cuda"),
                  "gzip-encode", {"parse": parse.parse_extend_v3,
-                                 "screen": mf.suffix_screen},
+                                 "screen": mf.suffix_screen,
+                                 "pack": bitpack.pack_deflate},
                  phase="encode-profile")
 
 
@@ -2536,18 +2603,19 @@ def phase_sharded_gzip(data, smi):
     """sharded_compress of `data` (64 MiB) on make_mesh(4): four shards
     of 16 MiB, all on cuda:0. The output equals one gzip member per 16 MiB
     span built from oracle.deflate_encode with the same framing, and
-    gzip reads it; #1 launches once a shard and no shard is declined to
-    the host; the screen kernel launches once a chunk of SCREEN_CHUNK rows
-    of each shard. Timed (warm median of 3), and the ratio cost of the
+    gzip reads it; #1 and the pack kernel launch once a shard and no
+    shard is declined to the host; the screen kernel launches once a chunk
+    of SCREEN_CHUNK rows of each shard. Timed (warm median of 3), and the ratio cost of the
     cut: the four members against one member of the whole buffer (the
     oracle's stream, as a buffer above MAX_DEVICE_SPAN takes). Returns
-    (the launches of #1 and of the screen kernel, the four DEFLATE
-    bodies)."""
+    (the launches of #1, the screen and the pack kernels, the four
+    DEFLATE bodies)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tpz_torch import oracle
     from tpz_torch.codecs import gzip_codec
     from tpz_torch.codecs.deflate import DeflateConfig
+    from tpz_torch.kernels import bitpack
     from tpz_torch.kernels import deflate_pipeline as dp
     from tpz_torch.kernels import matchfinder as mf
     from tpz_torch.kernels import parse
@@ -2557,17 +2625,18 @@ def phase_sharded_gzip(data, smi):
     declines = dp.host_declines
     out, dt, c = drive("sharded-gzip", "mesh4-64MiB", lambda: (
         pmesh.sharded_compress(data, mesh, level=LEVEL)),
-        {"parse": parse.parse_extend_v3, "screen": mf.suffix_screen})
+        {"parse": parse.parse_extend_v3, "screen": mf.suffix_screen,
+         "pack": bitpack.pack_deflate})
     span = len(data) // 4
     spans = [data[i * span:(i + 1) * span] for i in range(4)]
     chunks = sum(-(-(-(-len(s) // mf.BLOCK)) // dp.SCREEN_CHUNK)
                  for s in spans)
-    if (c["parse"] != 4 or c["screen"] != chunks
+    if (c["parse"] != 4 or c["pack"] != 4 or c["screen"] != chunks
             or dp.host_declines != declines):
         raise RuntimeError(f"sharded-gzip: #1 launched {c['parse']} times "
-                           f"(want 4), the screen {c['screen']} (want "
-                           f"{chunks}), host declines "
-                           f"{dp.host_declines - declines}")
+                           f"and the pack {c['pack']} (want 4 each), the "
+                           f"screen {c['screen']} (want {chunks}), host "
+                           f"declines {dp.host_declines - declines}")
     params = DeflateConfig(LEVEL).params_array()
     with ThreadPoolExecutor(5) as pool:
         whole = pool.submit(oracle.deflate_encode, data, params)
@@ -2967,6 +3036,7 @@ def main() -> int:
              "repetitive": corpus.repetitive(MIB, seed=12)}
     kern = phase_kernel(batches[0], small)
     screen = phase_screen_kernel(batches[0])
+    pack = phase_bitpack_kernel(batches[0])
     launches, blobs = phase_slice(batches[0])
     enc_mb_s = phase_timing(batches[1:], smi)
     hdr_len = len(gzip_codec.header_bytes(LEVEL))
@@ -3046,7 +3116,10 @@ def main() -> int:
              "tpz/kernels/checksums.py:104", crc_n, crc_row),
             ("suffix_screen_v3", "suffix_screen.cu",
              "none (XLA stage tpz/kernels/matchfinder.py::suffix_screen_w)",
-             launches["screen"] + sharded["screen"], screen)]
+             launches["screen"] + sharded["screen"], screen),
+            ("deflate_pack", "deflate_pack.cu",
+             "none (XLA stage tpz/kernels/bitpack.py::assemble_stream_v2)",
+             launches["pack"] + sharded["pack"], pack)]
     # None of these functions has one PyTorch call that computes it (torch
     # has no CRC).
     print(json.dumps({"kernels": [{

@@ -108,6 +108,8 @@ def lib() -> ctypes.CDLL:
         L.tpz_suffix_screen_v3.restype = ci
         L.tpz_suffix_screen_v3.argtypes = [vp] * 6 + [ci] * 8 + [vp]
         ll = ctypes.c_longlong
+        L.tpz_deflate_pack.restype = ci
+        L.tpz_deflate_pack.argtypes = [vp] * 13 + [ci] * 3 + [ll, vp]
         L.tpz_crc32_lanes.restype = ci
         L.tpz_crc32_lanes.argtypes = [vp, ll, ci, ci, vp, vp, vp, ll, vp, vp,
                                       ci, vp]

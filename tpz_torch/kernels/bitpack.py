@@ -11,15 +11,19 @@ exclusive prefix sum of slot widths; dead slots have width 0 and shift
 nothing. Each slot (<= 28 bits) lands in at most two 32-bit words, and
 contributions to one word occupy disjoint bit ranges, so a scatter-add
 assembles the words exactly (add == or). u32 values ride in int64 (H3).
+On a card `pack_deflate` runs the same packing as one CUDA kernel
+(csrc/deflate_pack.cu).
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpz_torch.utils.bits import U32
+from tpz_torch.kernels.matchfinder import BLOCK
+from tpz_torch.utils.bits import U32, to_i32
 
 STORED_CHUNK = 32768  # must match cpp/deflate.cc kStoredChunk
+TABLE_COLS = 320
 
 
 def _bitlen(x: torch.Tensor, maxbits: int) -> torch.Tensor:
@@ -132,6 +136,76 @@ def assemble_stream_v2(data_block, is_token, mlen, mdist, table320,
     hv, hn, ho = header
     _scatter_words(words, ho.to(torch.int64), hv.to(torch.int64), hn > 0)
     return words[:total_words]
+
+
+def pack_deflate(data_block, is_token, mlen, mdist, table320, body_off,
+                 btype, block_len, chunk1_off, header,
+                 total_words: int) -> torch.Tensor:
+    """assemble_stream_v2's words as int32 [total_words] (the same
+    arguments): the plain version for CPU tensors; for CUDA tensors one
+    launch of csrc/deflate_pack.cu, one CUDA block a row, into zeroed
+    words. Raises for another device, dtype or shape, a B other than
+    BLOCK, or a non-contiguous input."""
+    dev = data_block.device
+    if dev.type == "cpu":
+        return to_i32(assemble_stream_v2(
+            data_block, is_token, mlen, mdist, table320, body_off, btype,
+            block_len, chunk1_off, header, total_words))
+    NB, B = data_block.shape
+    if B != BLOCK:
+        raise ValueError(f"DEFLATE pack: rows of {B} positions; the kernel "
+                         f"takes {BLOCK}")
+    hv, hn, ho = header
+    H = hv.shape[1] if hv.dim() == 2 else -1
+    i32 = torch.int32
+    for name, t, dtype, shape in (
+            ("data_block", data_block, i32, (NB, B)),
+            ("is_token", is_token, torch.bool, (NB, B)),
+            ("mlen", mlen, i32, (NB, B)), ("mdist", mdist, i32, (NB, B)),
+            ("table320", table320, i32, (NB, TABLE_COLS)),
+            ("body_off", body_off, i32, (NB,)), ("btype", btype, i32, (NB,)),
+            ("block_len", block_len, i32, (NB,)),
+            ("chunk1_off", chunk1_off, i32, (NB,)),
+            ("hdr_vals", hv, torch.int64, (NB, H)),
+            ("hdr_nbits", hn, i32, (NB, H)), ("hdr_offs", ho, i32, (NB, H))):
+        if (t.device != dev or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"DEFLATE pack: {name} must be a contiguous {dtype} tensor "
+                f"of shape {shape} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"DEFLATE pack: unsupported device {dev}")
+    out = torch.zeros(total_words, dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        _pack_launch(data_block, is_token, mlen, mdist, table320, body_off,
+                     btype, block_len, chunk1_off, header, out)
+    pack_deflate.launches += 1
+    return out
+
+
+pack_deflate.launches = 0
+pack_deflate.kernels = ("deflate_pack",)
+
+
+def _pack_launch(data_block, is_token, mlen, mdist, table320, body_off,
+                 btype, block_len, chunk1_off, header, out) -> None:
+    """One launch of the kernel on the tensors pack_deflate checked, into
+    `out`. It ORs or stores each word's bits, so a second launch on the
+    same `out` leaves it as it was."""
+    from tpz_torch.kernels import _build
+
+    NB, B = data_block.shape
+    hv, hn, ho = header
+    rc = _build.lib().tpz_deflate_pack(
+        data_block.data_ptr(), is_token.data_ptr(), mlen.data_ptr(),
+        mdist.data_ptr(), table320.data_ptr(), body_off.data_ptr(),
+        btype.data_ptr(), block_len.data_ptr(), chunk1_off.data_ptr(),
+        hv.data_ptr(), hn.data_ptr(), ho.data_ptr(), out.data_ptr(), NB, B,
+        hv.shape[1], out.shape[0], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"DEFLATE pack kernel launch failed: cudaError "
+                           f"{rc}")
 
 
 def assemble_stream_msb(vals, nbits, body_off, total_words: int):

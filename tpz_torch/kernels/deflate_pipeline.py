@@ -11,7 +11,8 @@ receives):
            neighbour scan a CUDA kernel on a card)
   parse    the spec-v3 walk (kernels/parse.py; CUDA kernel on a card)
   plan     symbol histograms + Huffman planning (deflate_plan_device.py)
-  bitpack  prefix-sum bit packer (kernels/bitpack.py)
+  bitpack  prefix-sum bit packer (kernels/bitpack.py; one CUDA kernel on
+           a card)
   fetch    device-to-host copy of the packed words, cut per buffer
 
 Each buffer is its own DEFLATE stream (window reset between buffers);
@@ -145,12 +146,12 @@ def _fused_encode(span, span_off, span_len, block_len, buf_start, bfinal,
                               torch.zeros((NB, 2), dtype=torch.int32,
                                           device=words.device)], dim=1)
         total_words = (int(end_pos[-1]) + 31) // 32
-        out = bitpack.assemble_stream_v2(
+        out = bitpack.pack_deflate(
             data_block, is_token, mlen, mdist, table320, plan["body_off"],
             plan["btype"], block_len, plan["chunk1_off"],
             (plan["hdr_vals"], plan["hdr_nbits"], plan["hdr_offs"]),
             total_words)
-    return to_i32(out), end_pos
+    return out, end_pos
 
 
 def span_layout(datas):
