@@ -3,8 +3,7 @@
 paths, of the v3w parse walk no codec path reaches, of the streaming
 encode and decode, raw LZSS, the checksums, the CLI and the sharded
 shape (mesh encodes, the sharded encode step, span sharding with a real
-two-process job) and the bench (`python -m tpz_torch bench`), on one
-NVIDIA GPU.
+two-process job), on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,13 +17,29 @@ Phases (each prints one line; any failure raises and exits non-zero):
               equality (the plain walk on host copies of the inputs),
               then both timed at the headline shape (NB = 512 blocks,
               restart 16384)
-  4. slice    tpz_torch.api.compress_many on 2 x 16 MiB of corpus.mixed,
+  4. screen-kernel
+              the v3 screen's scan kernel (matchfinder.suffix_screen)
+              against the plain screen (suffix_screen_w_chunked) on the
+              card at the headline layout, level 6: pk1, pk2 and cap_at
+              equal at every column, one launch a chunk of SCREEN_CHUNK
+              rows; the wrapper (sorts and scans, mean of 5), the scan
+              launches alone (mean of 5) and the plain screen (one call)
+              timed, the scans beside their bound (the permutation and the
+              words read once, pk1 and pk2 written once, at 3.35 TB/s)
+  5. bitpack-kernel
+              the DEFLATE bit packer's kernel (bitpack.pack_deflate)
+              against the plain packer (assemble_stream_v2) on the inputs
+              one headline gzip encode's plan stage makes, level 6: every
+              word equal, one launch a call; the wrapper (mean of 5), the
+              launch alone on the same words (mean of 5; it leaves them as
+              they are) and the plain packer (one call) timed, the launch
+              beside its bound (its inputs read once, the words written
+              once, at 3.35 TB/s)
+  6. slice    tpz_torch.api.compress_many on 2 x 16 MiB of corpus.mixed,
               gzip level 6, device "cuda": bodies equal the oracle's bytes,
               gzip.decompress round-trips, the parse walk and the screen
               launched, the pack kernel once
-  5. timing   warm median of 3 iterations on fresh seeds (MB/s), and a
-              per-stage split from CUDA events
-  6. decode-kernels
+  7. decode-kernels
               the symbol-walk kernel against its plain torch version
               (exact markers) and the copy-machine kernel against the
               plain doubling resolve (exact bytes): 1 MiB of
@@ -35,7 +50,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
               at 2^24 positions (one copy-machine launch, chains across
               every segment) and at 2^24 + 2^20 (the chunked route, two
               launches); then at 16 MiB a TZ-indexed member and the
-              segmented layout of a phase-4 gzip body (the headline
+              segmented layout of a phase-6 gzip body (the headline
               dispatch's own input, one launch), both kernels timed there
               beside their plain versions (the copy machine per 16 MiB
               span: its launch alone, at three segment lengths, and
@@ -46,18 +61,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
               boundaries met in pass B, carried through in pass B (the
               slow route) and re-walked in the stitch; the
               plain walk runs on host copies of the walk's inputs
-  7. decode-slice
-              api.decompress_many on the 2 x 16 MiB gzip blobs of phase 4,
+  8. decode-slice
+              api.decompress_many on the 2 x 16 MiB gzip blobs of phase 6,
               api.decompress on a 16 MiB TZ-indexed member, a stdlib gzip
               and a stdlib zlib stream, device "cuda": every output equals
               its input; on each of the four paths, with the counts set to
               0 just before it, both decode kernels launched and nothing
               declined to the host; a corrupt gzip stream raises on the
               card the error that device "cpu" raises
-  8. decode-timing
-              warm median of 3 decompress_many calls on the 2 x 16 MiB
-              batch (MB/s of plaintext) and a per-stage split from CUDA
-              events, with the host CRC time
   9. lzhuf-kernels
               the v1 parse-walk kernel against its plain torch version
               (exact reach and lengths) on the blocks of 1 MiB of
@@ -87,12 +98,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
               and the copy machine on decode; nothing declines to the host.
               Corrupt lh5 streams decode on the card as on device "cpu":
               one raises the same error, one gives the same bytes
- 11. lzhuf-timing
-              lh5 encode MB/s (warm median of 3 calls on the timing
-              batches) and decode MB/s (warm median of 3 calls on the
-              slice's lh5 blobs), each with a per-stage split from CUDA
-              events
- 12. lzhuf-profile
+ 11. lzhuf-profile
               one more warm lh5 encode of the headline batch and decode of
               its blobs under torch.profiler: host wall time, device busy
               time (the union of the kernel, memcpy and memset intervals
@@ -101,7 +107,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
               of the path's wrappers and the device ops that took the most
               time; the trace must hold every CUDA kernel of each wrapper
               the call launched
- 13. bzip2-kernels
+ 12. bzip2-kernels
               the bzip2 symbol-walk kernel against its plain torch version
               (exact records and meta; the plain walk on host copies of
               the inputs) on small stdlib and oracle streams at levels 1
@@ -118,42 +124,40 @@ Phases (each prints one line; any failure raises and exits non-zero):
               timed at the headline shape, the iBWT also at the candidate
               strides around the decode's (IBWT_STRIDES), which must give
               the same bytes and flags
- 14. bzip2-slice
+ 13. bzip2-slice
               api.decompress_many on the headline blobs, api.decompress on
               a 16 MiB stdlib bz2 level 9 stream and on a two-stream
               concatenation, device "cuda": every output equals its input,
               each path (counts set to 0 just before it) one dispatch that
               launched each kernel once, nothing sent to decompress's
               second route (host symbol decode) or the host decoder
- 15. bzip2-timing
-              warm median of 3 decompress_many calls on the headline blobs
-              (MB/s of plaintext), a per-stage split from CUDA events, and
-              one call under torch.profiler (as phase 12: device busy
-              time, idle share, the time of each of the walk's kernels
-              (records, labels, lists, bytes) and the iBWT's (walk,
-              stitch, place), and the trace must hold every kernel of
-              each wrapper the call launched)
- 16. bzip2-encode-kernels
+ 14. bzip2-profile
+              one decompress_many call on the headline blobs under
+              torch.profiler (as phase 11: device busy time, idle share,
+              the time of each of the walk's kernels (records, labels,
+              lists, bytes) and the iBWT's (walk, stitch, place), and the
+              trace must hold every kernel of each wrapper the call
+              launched)
+ 15. bzip2-encode-kernels
               the MTF-encode kernel against its plain version (exact
               ranks) on the symbols and the selectors (alpha 6) of small
               buffers and of the headline batch at level 9, built by the
               encode's own stages, the small ones at the default segment
               length (mtf.MTF_SEG symbols) and at 32; the headline's calls
               timed
- 17. bzip2-encode-slice
+ 16. bzip2-encode-slice
               api.compress_many on the headline batch at level 9, device
-              "cuda": the streams equal the oracle's blobs of phase 13, bz2
+              "cuda": the streams equal the oracle's blobs of phase 12, bz2
               and the port's decode give the inputs back, one dispatch
               (counts set to 0 just before it) launched the MTF kernel
               twice (symbols, selectors); api.compress of 1 MiB at level
               1, b"", b"a" and bytes(range(256)) * 40 the same; the 1 MiB
               buffer again in dispatches of at most 4 blocks
- 18. bzip2-encode-timing
-              warm median of 3 compress_many calls on the timing batches
-              (MB/s), a per-stage split from CUDA events, and one call
-              under torch.profiler (as phase 15; the MTF's kernels last,
-              keys and walk, for the symbols and the selectors together)
- 19. parse-kernels-8-9
+ 17. bzip2-encode-profile
+              one compress_many call on the headline batch at level 9
+              under torch.profiler (as phase 14; the MTF's kernels, keys
+              and walk, for the symbols and the selectors together)
+ 18. parse-kernels-8-9
               the v3w form of the v3 walk kernel against its plain version
               on 1 MiB of corpus.mixed and corpus.repetitive at levels 1
               and 6 (greedy, lazy) and at the headline, and against #1 at
@@ -166,17 +170,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
               through its public function with its count set to 0, both
               timed at the headline, the reach walk at each tile of
               REACH_TILES; one greedy_parse call under torch.profiler (as
-              phase 12; the trace must hold both reach kernels)
- 20. decode-profile
-              one gzip decode call of phase 4's blobs under torch.profiler
-              (as phase 12; the trace must hold the symbol walk's and the
+              phase 11; the trace must hold both reach kernels)
+ 19. decode-profile
+              one gzip decode call of phase 6's blobs under torch.profiler
+              (as phase 11; the trace must hold the symbol walk's and the
               copy machine's kernels)
- 21. encode-profile
+ 20. encode-profile
               one warm gzip encode call of the headline batch under
-              torch.profiler (as phase 12; the trace must hold the parse
+              torch.profiler (as phase 11; the trace must hold the parse
               walk's, the screen's and the pack's kernels)
- 22. stream-encode
-              api.CodecStream on the card: gzip on phase 4's first 16 MiB
+ 21. stream-encode
+              api.CodecStream on the card: gzip on phase 6's first 16 MiB
               buffer in 1 MiB writes (Action.RUN, then FINISH) equals
               api.compress and the oracle's body; flushed every 4 MiB, it
               equals the header, the oracle's sync-flushed segments, its
@@ -186,17 +190,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
               both gzip streams timed (warm median of 3, MB/s); a bzip2
               stream flushed once is two streams that bz2 reads; an lh5
               flush raises DataError
- 23. stream-decode
+ 22. stream-decode
               api.DecodeStream (on the host, as the reference's) in 64 KiB
-              writes on phase 4's gzip blob, a two-member gzip, a stdlib
-              zlib stream, phase 14's level-9 bzip2 blob and phase 10's
+              writes on phase 6's gzip blob, a two-member gzip, a stdlib
+              zlib stream, phase 13's level-9 bzip2 blob and phase 10's
               lh5 blob: each output equals its input, half of each blob
               raises UnexpectedEof; MB/s each
- 24. lzss     formats() equals the reference's list; 16 MiB of raw LZSS
+ 23. lzss     formats() equals the reference's list; 16 MiB of raw LZSS
               through api.compress / decompress on "cuda" (the codec runs
               on the host): bytes equal to the oracle's, the round trip
               exact; MB/s both ways
- 25. checksums
+ 24. checksums
               the CRC lane kernel against its plain version, exactly (the
               chunk registers and the combined one), on 1 MiB of
               corpus.mixed and corpus.repetitive, on 1, 3, 4,097 bytes and
@@ -207,10 +211,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
               on the card (its count set to 0 just before) launches the
               kernel once; the kernel timed at 16 MiB at each chunk length
               beside its plain version and its bound
- 26. cli      python -m tpz_torch selftest -n 1048576 --device cuda as a
+ 25. cli      python -m tpz_torch selftest -n 1048576 --device cuda as a
               subprocess (every format OK), then compress / decompress
               file round trips at gzip and lh5
- 27. sharded-gzip
+ 26. sharded-gzip
               tpz_torch.parallel.mesh.sharded_compress of 64 MiB (the
               first four headline buffers) on make_mesh(4): four 16 MiB
               shards on cuda:0, one gzip member each, equal to members
@@ -219,52 +223,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
               of SCREEN_CHUNK rows
               of each shard, no host decline; warm median of 3 (MB/s); the
               ratio cost of the cut against one member of the whole 64 MiB
- 28. sharded-bzip2
+ 27. sharded-bzip2
               sharded_compress_bzip2 of the same 64 MiB at level 9 on
               make_mesh(4) and make_mesh(1): equal bytes, bz2 reads them,
               MTF launches counted; warm median of 3
- 29. sharded-step
+ 28. sharded-step
               sharded_encode_step(make_mesh(4), k=8, window=32768,
               block=65536) on 16 MiB: #8 launched 4 times, every token
               count positive, is_token equal to the plain reach route;
               find_matches at 1 MiB equal on the card and the CPU;
-              ragged_all_gather equal to ring_all_gather on phase 27's
+              ragged_all_gather equal to ring_all_gather on phase 26's
               member bodies
- 30. distributed
+ 29. distributed
               parallel.distributed.compress_sharded of the 64 MiB in 16
               MiB spans, gzip and bzip2; a run with span 1 failing raises
               and its resume gives the same bytes; a two-process job
               (torch.multiprocessing, two ranks on cuda:0 joined by gloo
               over 127.0.0.1: rank 1 writes its spans, both meet at a
               barrier, rank 0 assembles) gives the one-process bytes
- 31. bench    python -m tpz_torch bench --device cuda as a subprocess at
-              its defaults but --bytes 8 MiB (the headline, 2 x 8 MiB
-              gzip level 6, and the reference's 12 rows): exit 0, the last line under 1 KB
-              with device_ran true, a positive value and backend "cuda",
-              every row without error or skip, every roofline share of
-              the kernel ceiling (pct_of_kernel) at most 105, the headline
-              GB/s x 1,000 within 0.5-2x of phase 5's MB/s; each row's
-              MB/s, its first call's, the build and the measured rates
-              logged; then --headline-only at 1 MiB, one batch, with
-              --trace: the chrome trace names the v3 parse walk's kernel
- 32. screen-kernel (runs after phase 3)
-              the v3 screen's scan kernel (matchfinder.suffix_screen)
-              against the plain screen (suffix_screen_w_chunked) on the
-              card at the headline layout, level 6: pk1, pk2 and cap_at
-              equal at every column, one launch a chunk of SCREEN_CHUNK
-              rows; the wrapper (sorts and scans, mean of 5), the scan
-              launches alone (mean of 5) and the plain screen (one call)
-              timed, the scans beside their bound (the permutation and the
-              words read once, pk1 and pk2 written once, at 3.35 TB/s)
- 33. bitpack-kernel (runs after phase 32)
-              the DEFLATE bit packer's kernel (bitpack.pack_deflate)
-              against the plain packer (assemble_stream_v2) on the inputs
-              one headline gzip encode's plan stage makes, level 6: every
-              word equal, one launch a call; the wrapper (mean of 5), the
-              launch alone on the same words (mean of 5; it leaves them as
-              they are) and the plain packer (one call) timed, the launch
-              beside its bound (its inputs read once, the words written
-              once, at 3.35 TB/s)
 The last phase line gives the script's seconds so far. A JSON record of
 the kernels (launches from each one's main-path calls:
 gzip encode and sharded_compress (#1, the screen and the pack), gzip decode, lh5 encode, lh5 decode,
@@ -293,18 +269,8 @@ import zlib
 import numpy as np
 import torch
 
-# A kernel's bound is the larger of its bytes (each input read once, each
-# array the kernel writes written once) over the card's memory rate and
-# its int32 operations, hand-counted a trip (OPS_*), over the card's
-# int32 rate: tpz_torch/utils/roofline.py, which the bench prices with.
-from tpz_torch.utils.roofline import (
-    OPS_COPY_MATCHED, OPS_COPY_POSITION, OPS_CRC_BYTE, OPS_HUFFMAN_SYMBOL,
-    OPS_IBWT_STEP, OPS_LZHUF_LITERAL, OPS_LZHUF_MATCH, OPS_MTF_ENCODE,
-    OPS_MTF_INVERSE, OPS_MTF_MOVE, OPS_REACH_STEP, OPS_RLE2_RUN,
-    OPS_STAGE_WORD, OPS_SYMBOL_LITERAL, OPS_SYMBOL_MATCH, OPS_V1_EXTEND,
-    OPS_V1_VISIT, OPS_V3W_EXTEND, OPS_V3W_TOKEN, OPS_V3_EXTEND,
-    OPS_V3_TOKEN, bound, bound_bytes_ops)
-from tpz_torch.bench import make_corpus
+from benchmark import traceops, work
+from tpz_torch.utils.corpus import make_corpus
 
 MIB = 1 << 20
 HEADLINE_BYTES = 16 * MIB
@@ -331,12 +297,89 @@ REACH_TILES = (4096, 8192, 16384, 32768)
 # The MTF kernels' second segment length on the small inputs: short enough
 # that segment cuts fall inside runs and mid-block.
 MTF_SEG_CHECK = 32
-# Phase 13's long blocks, level 1: each runs its records pass through the
+# Phase 12's long blocks, level 1: each runs its records pass through the
 # ring of csrc/bzip2_walk.cu (kRing entries between its decoder thread and
 # its RLE2 warp) several times over. The plain walk runs them on the host
 # (one Python trip per symbol, ~2 ms each on the card).
 LONG_BLOCK_BYTES = 64 * 1024
 BZIP2_RING = 8192
+
+# A kernel's bound is the larger of its bytes (each input read once, each
+# array the kernel writes written once) over the card's memory rate
+# (benchmark/peaks.json) and its int32 operations, hand-counted a trip
+# (OPS_*), over the card's int32 rate. NVIDIA's H100 SXM datasheet
+# (700 W): 67 T/s float32 outside the tensor cores, i.e. 132 SMs x 128
+# FP32 lanes x 2 (an FMA) x 1.98 GHz. An SM has 64 INT32 lanes (NVIDIA's
+# Hopper architecture whitepaper), so int32 issues at 67e12 / 2 / 2 per
+# second.
+INT_OPS_PER_S = 67e12 / 4
+# Operations per loop trip, counted by hand from the CUDA sources (each
+# add, shift, logical op, compare, select, min, max, load and store is
+# one) along the trip's shortest path: a level-2 escape, a lazy probe or
+# a corrupt-input clamp adds more, so the bound stays a least time.
+OPS_STAGE_WORD = 4         # Huffman walks: staging one table/slice word
+OPS_LZHUF_LITERAL = 44     # lzhuf_walk.cu: a token that is a literal
+OPS_LZHUF_MATCH = 108      # ... a match (p lookup, raw bits, marker)
+OPS_SYMBOL_LITERAL = 49    # symbol_walk.cu: a literal
+OPS_SYMBOL_MATCH = 137     # ... a match (length and distance extras)
+OPS_V1_VISIT = 31          # #4: a visited position (counted from the
+                           # serial walk; the function's own work)
+OPS_V1_EXTEND = 16         # ... one 4-byte extension compare
+OPS_V3_TOKEN = 15          # #1: a token on the mark fast path (counted
+                           # from the serial walk; the function's own work)
+OPS_V3_EXTEND = 12         # ... one 4-byte extension compare
+OPS_COPY_POSITION = 16     # #3: a position's state and its check
+                           # (counted from the serial copy machine)
+OPS_COPY_MATCHED = 12      # ... the copy of one matched position
+OPS_IBWT_STEP = 17         # #7: a node's step (its load, the successor
+                           # test, its byte out; the function's own work)
+OPS_REACH_STEP = 8         # #8: a visited position (its load, step, mark;
+                           # counted from the serial walk, the function's
+                           # own work)
+OPS_V3W_TOKEN = 36         # #9: a token through TOK and FIN of the serial
+                           # walk (the function's own work, whatever the
+                           # design)
+OPS_V3W_EXTEND = 12        # ... one 4-byte extension compare
+# The bzip2 symbol walk (#6) and the MTF encode are counted from the work
+# of the function itself, whatever the design: a move-to-front moves as
+# many list entries as the symbol's rank, which this run's data gives.
+OPS_HUFFMAN_SYMBOL = 5     # #6: peek the code's bits, table load, length,
+                           # bit position, group count
+OPS_RLE2_RUN = 2           # #6: a run symbol's shifted add to its run
+OPS_MTF_INVERSE = 4        # #6: a record's read at its rank, write at the
+                           # front, its compose and store
+OPS_MTF_ENCODE = 4         # MTF: a symbol's load, rank lookup, write at
+                           # the front and store of its rank
+OPS_MTF_MOVE = 1           # both: each list entry moved
+# crc32_lanes: its byte-table loads, one a byte.
+OPS_CRC_BYTE = 1
+
+
+def hbm_bytes_per_s() -> float:
+    """The card's memory rate, from benchmark/peaks.json; a card the table
+    lacks raises, since no other card's rate stands in for it."""
+    card = torch.cuda.get_device_name()
+    rate = work.hbm_bytes_per_s(card)
+    if rate is None:
+        raise RuntimeError(f"no memory rate for {card!r} in "
+                           f"{work.PEAKS}")
+    return rate
+
+
+def bound(tensors, ops) -> dict:
+    """bound_ms and bound_by for a kernel call that reads or writes each
+    of `tensors` once and does `ops` int32 operations."""
+    return bound_bytes_ops(sum(t.numel() * t.element_size()
+                               for t in tensors), ops)
+
+
+def bound_bytes_ops(nbytes, ops) -> dict:
+    """bound_ms and bound_by for a kernel call that moves `nbytes` and
+    does `ops` int32 operations."""
+    ms_bytes = nbytes / hbm_bytes_per_s() * 1e3
+    ms_ops = ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(ms_bytes, ms_ops),
+            "bound_by": "bytes" if ms_bytes >= ms_ops else "operations"}
 
 
 def log(phase: str, **kv) -> None:
@@ -450,25 +493,6 @@ def drive(phase, path, fn, counters):
     return out, dt, counts
 
 
-def stage_split(run) -> dict:
-    """Milliseconds between CUDA events recorded at each stage hook of
-    run(hook), summed by stage name."""
-    events = [("start", torch.cuda.Event(enable_timing=True))]
-    events[0][1].record()
-
-    def hook(stage):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((stage, ev))
-
-    run(hook)
-    torch.cuda.synchronize()
-    split = {}
-    for (_, prev), (name, ev) in zip(events, events[1:]):
-        split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
-    return split
-
-
 def warm_median(fn, iters):
     times = []
     for args in iters:
@@ -566,7 +590,7 @@ def screen_inputs(datas, device="cuda"):
 
 
 def phase_screen_kernel(headline):
-    """Phase 32: the v3 screen's scan kernel against the plain screen at the
+    """Phase 4: the v3 screen's scan kernel against the plain screen at the
     headline layout, level 6; the wrapper, the scan launches alone and
     the plain screen timed, the scans beside their bound."""
     from tpz_torch.codecs.deflate import DeflateConfig
@@ -617,7 +641,7 @@ def phase_screen_kernel(headline):
 
 
 def phase_bitpack_kernel(headline):
-    """Phase 33: the DEFLATE bit packer's kernel against the plain packer
+    """Phase 5: the DEFLATE bit packer's kernel against the plain packer
     at the headline layout, level 6, on the inputs the encode's own plan
     stage makes (caught from one gzip encode call); the wrapper, the
     launch alone and the plain packer timed, the launch beside its
@@ -695,33 +719,6 @@ def phase_slice(batch):
         raise RuntimeError(f"slice: the pack kernel launched {c['pack']} "
                            f"times (want 1)")
     return c, blobs
-
-
-def phase_timing(batches, smi) -> float:
-    from tpz_torch import api
-    from tpz_torch.codecs import gzip_codec
-    from tpz_torch.codecs.deflate import DeflateConfig
-    from tpz_torch.kernels import deflate_pipeline as dp
-
-    total = sum(len(d) for d in batches[0])
-    median, times = warm_median(lambda b: api.compress_many(
-        b, "gzip", level=LEVEL, device="cuda"), batches)
-    log("timing", mb_per_s=f"{total / median / 1e6:.2f}",
-        median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
-        card=f"'{smi}'")
-
-    # Per-stage split: a CUDA event after each device stage.
-    batch = batches[-1]
-    bodies = []
-    split = stage_split(lambda hook: bodies.extend(dp.compress_many(
-        batch, DeflateConfig(LEVEL), "cuda", stage_hook=hook)))
-    t0 = time.perf_counter()
-    hdr = gzip_codec.header_bytes(LEVEL)
-    for d, body in zip(batch, bodies):
-        hdr + body + gzip_codec._trailer(d)
-    split["host_framing"] = (time.perf_counter() - t0) * 1e3
-    log("timing", **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
-    return total / median / 1e6
 
 
 def indexed_inputs(data):
@@ -838,7 +835,7 @@ def dist1_markers(n):
 
 def phase_decode_kernels(small, big, body):
     """`big` is 16 MiB of plaintext for the TZ-indexed route; `body` is the
-    raw DEFLATE body of one phase-4 gzip blob, whose segmented layout is
+    raw DEFLATE body of one phase-6 gzip blob, whose segmented layout is
     what the headline decode dispatch gives both kernels."""
     from tpz_torch.kernels import inflate_pipeline as ip
     from tpz_torch.kernels import resolve_walk as rw
@@ -1071,31 +1068,10 @@ def same_outcome(what: str, blob: bytes, fmt: str) -> str:
     return got[0] if got[0] == "bytes" else f"{got[0]}({got[1]!r})"
 
 
-def phase_decode_timing(batch, blobs, smi) -> None:
-    from tpz_torch import api
-    from tpz_torch.codecs import gzip_codec
-
-    total = sum(len(d) for d in batch)
-    median, times = warm_median(lambda _: api.decompress_many(
-        blobs, "gzip", device="cuda"), range(TIMING_ITERS))
-    log("decode-timing", mb_per_s=f"{total / median / 1e6:.2f}",
-        median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
-        card=f"'{smi}'")
-
-    # Per-stage split: a CUDA event after each stage, summed over buffers.
-    split = stage_split(lambda hook: gzip_codec.decompress_many(
-        blobs, device="cuda", stage_hook=hook))
-    t0 = time.perf_counter()
-    for d in batch:
-        zlib.crc32(d)
-    split["host_crc"] = (time.perf_counter() - t0) * 1e3
-    log("decode-timing", **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
-
-
 def phase_decode_profile(blobs) -> None:
     """One gzip decode call of the headline blobs under torch.profiler, as
-    phase 12. It runs last: with one more profiled call before phase 15,
-    phase 15's trace lost the bzip2 walk's kernels (PERF.md §7)."""
+    phase 11. It runs late: with one more profiled call before phase 14,
+    phase 14's trace lost the bzip2 walk's kernels (PERF.md §7)."""
     from tpz_torch import api
     from tpz_torch.kernels import inflate_pipeline as ip
     from tpz_torch.kernels import resolve_walk as rw
@@ -1108,9 +1084,9 @@ def phase_decode_profile(blobs) -> None:
 
 def phase_encode_profile(batch) -> None:
     """One warm gzip encode call of the headline batch under
-    torch.profiler, as phase 12: the parse walk's and the screen's
-    kernel time and the call's idle share. It runs after phase 20, for
-    the reason phase 20 runs last."""
+    torch.profiler, as phase 11: the parse walk's and the screen's
+    kernel time and the call's idle share. It runs after phase 19, for
+    the reason phase 19 runs late."""
     from tpz_torch import api
     from tpz_torch.kernels import bitpack
     from tpz_torch.kernels import matchfinder as mf
@@ -1392,88 +1368,9 @@ def phase_lzhuf_slice(batch, small):
     return blobs[LZHUF_METHOD], counts[LZHUF_METHOD]
 
 
-def phase_lzhuf_timing(batches, batch, blobs, smi) -> None:
-    from tpz_torch import api
-    from tpz_torch.codecs import lzhuf
-    from tpz_torch.kernels import lzhuf_pipeline as lp
-
-    total = sum(len(d) for d in batches[0])
-    median, times = warm_median(lambda b: api.compress_many(
-        b, LZHUF_METHOD, device="cuda"), batches)
-    log("lzhuf-timing", direction="encode", method=LZHUF_METHOD,
-        mb_per_s=f"{total / median / 1e6:.2f}", median_s=f"{median:.4f}",
-        all_s=[round(t, 4) for t in times], card=f"'{smi}'")
-    split = stage_split(lambda hook: lp.compress_many(
-        batches[-1], LZHUF_METHOD, "cuda", stage_hook=hook))
-    log("lzhuf-timing", direction="encode",
-        **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
-
-    total = sum(len(d) for d in batch)
-    median, times = warm_median(lambda _: api.decompress_many(
-        blobs, LZHUF_METHOD, device="cuda"), range(TIMING_ITERS))
-    log("lzhuf-timing", direction="decode", method=LZHUF_METHOD,
-        mb_per_s=f"{total / median / 1e6:.2f}", median_s=f"{median:.4f}",
-        all_s=[round(t, 4) for t in times], card=f"'{smi}'")
-    split = stage_split(lambda hook: lzhuf.decompress_many(
-        blobs, LZHUF_METHOD, device="cuda", stage_hook=hook))
-    log("lzhuf-timing", direction="decode",
-        **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
-
-
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # Host time between each end of a traced session's step and the traced
 # call (traced_session says why).
 TRACE_MARGIN_S = 0.05
-HOST_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-
-
-def launched_in(events, t0_us: float, t1_us: float) -> set:
-    """The correlation ids of the runtime and driver calls that the host
-    made in [t0_us, t1_us] of a chrome trace."""
-    return {e["args"]["correlation"] for e in events
-            if e.get("cat") in HOST_LAUNCH_CATS
-            and t0_us <= float(e["ts"]) <= t1_us
-            and "correlation" in e.get("args", {})}
-
-
-def device_busy(events, t0_us: float, t1_us: float):
-    """(busy ms, {op name: ms}) of the device events of a chrome trace
-    that were launched in [t0_us, t1_us]: those whose correlation id is
-    that of a runtime or driver call the host made in the window. The
-    trace places a session's device events against the host's clock with
-    an offset of its own (traced_session), so a device event's own time
-    does not say whether the window launched it."""
-    launched = launched_in(events, t0_us, t1_us)
-    spans, by_name = [], {}
-    for e in events:
-        if (e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS
-                or e.get("args", {}).get("correlation") not in launched):
-            continue
-        a = float(e["ts"])
-        b = a + float(e.get("dur", 0))
-        spans.append((a, b))
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + (b - a) / 1e3
-    busy, end = 0.0, -float("inf")
-    for a, b in sorted(spans):
-        if b <= end:
-            continue
-        busy += b - max(a, end)
-        end = b
-    return busy / 1e3, by_name
-
-
-def trace_events(prof) -> list:
-    """The chrome-trace events of a finished torch.profiler run."""
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return json.load(f)["traceEvents"]
-
-
-def kernel_events(events) -> list:
-    return [e for e in events
-            if e.get("ph") == "X" and e.get("cat") == "kernel"]
 
 
 def names_kernel(event_name: str, kernel: str) -> bool:
@@ -1486,11 +1383,10 @@ def names_kernel(event_name: str, kernel: str) -> bool:
 
 def missing_kernels(events, counters, t0_us: float, t1_us: float) -> list:
     """The CUDA kernels (each wrapper's .kernels) of the wrappers in
-    `counters` that launched, which no kernel event of the trace launched
+    `counters` that launched, which no kernel event that the host launched
     in [t0_us, t1_us] names."""
-    launched = launched_in(events, t0_us, t1_us)
-    names = [e["name"] for e in kernel_events(events)
-             if e.get("args", {}).get("correlation") in launched]
+    names = [e.name for e in traceops.launched(events, t0_us, t1_us)
+             if e.cat == "kernel"]
     return [k for c in counters.values() if c.launches
             for k in c.kernels
             if not any(names_kernel(n, k) for n in names)]
@@ -1505,12 +1401,12 @@ def traced_session(fn, label: str, counters: dict,
     keeps only the device events that its clock places inside the traced
     step, and that clock stands off the host's by an offset that changes
     from session to session (trace_offset.py measures it); without the
-    margins, traces lost a call's first kernels (phase 15's
+    margins, traces lost a call's first kernels (phase 14's
     bzip2_records_kernel twice, greedy_parse's reach_tile_walk once). The
     calls before the annotation keep the traced call as warm as the one
     before it. The wrappers' counts are set to 0 just before the traced
-    call. Returns (the chrome-trace events, the traced call's wall ms,
-    the annotation's [t0_us, t1_us] in the trace)."""
+    call. Returns (the session's events, benchmark/traceops.py's, the
+    traced call's wall ms, the annotation's [t0_us, t1_us])."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     margin_s = TRACE_MARGIN_S if margin_s is None else margin_s
@@ -1534,42 +1430,42 @@ def traced_session(fn, label: str, counters: dict,
             wall_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(margin_s)
         prof.step()
-    events = trace_events(prof)
-    mark = next(e for e in events if e.get("name") == label
-                and e.get("cat") == "user_annotation")
-    t0_us = float(mark["ts"])
-    return events, wall_ms, (t0_us, t0_us + float(mark["dur"]))
+    events = traceops.from_profiler(prof, labels=(label,))
+    return events, wall_ms, traceops.span_of(events, label)
 
 
 def profile_call(fn, label: str, counters: dict,
                  phase: str = "lzhuf-profile") -> None:
-    """One call of fn in a traced_session: logs its wall time, device
-    busy time, idle share, the device time of each CUDA kernel of the
-    wrappers in `counters` (name -> wrapper) and the top device ops.
-    Raises if the trace holds no device time, or lacks a kernel of a
-    wrapper that the call launched."""
+    """One call of fn in a traced_session: logs its wall time, the busy
+    time of the device events it launched (tied to it by correlation id,
+    since the trace places a session's device events against the host's
+    clock with an offset of its own), idle share, the device time of each
+    CUDA kernel of the wrappers in `counters` (name -> wrapper) and the
+    top device ops. Raises if the trace holds no device time, or lacks a
+    kernel of a wrapper that the call launched."""
     events, wall_ms, window = traced_session(fn, label, counters)
-    busy_ms, by_name = device_busy(events, *window)
+    launched = traceops.launched(events, *window)
+    busy_ms = traceops.busy_us(launched) / 1e3
     if busy_ms <= 0:
         raise RuntimeError(f"{label}: the trace holds no device time")
-    launched = {name: c.launches for name, c in counters.items()}
-    if min(launched.values()) < 1:
-        raise RuntimeError(f"{label}: a wrapper did not launch: {launched}")
+    counts = {name: c.launches for name, c in counters.items()}
+    if min(counts.values()) < 1:
+        raise RuntimeError(f"{label}: a wrapper did not launch: {counts}")
     missing = missing_kernels(events, counters, *window)
     if missing:
-        names = sorted({e["name"][:60] for e in kernel_events(events)})
+        names = sorted({e.name[:60] for e in events if e.cat == "kernel"})
         raise RuntimeError(f"{label}: launched kernels missing from the "
                            f"trace: {missing}; the trace's {len(names)} "
                            f"kernel names: {names}")
-    per_kernel = {k: round(sum(ms for n, ms in by_name.items()
-                               if names_kernel(n, k)), 3)
+    per_kernel = {k: round(sum(e.dur for e in launched
+                               if names_kernel(e.name, k)) / 1e3, 3)
                   for c in counters.values() for k in c.kernels}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = traceops.top_ops(launched, 8)
     log(phase, call=label, wall_ms=f"{wall_ms:.2f}",
         busy_ms=f"{busy_ms:.2f}", idle_share=f"{1 - busy_ms / wall_ms:.4f}",
-        launches=launched, kernels_in_trace=True,
+        launches=counts, kernels_in_trace=True,
         kernel_ms=json.dumps(per_kernel),
-        top=json.dumps({k[:60]: round(v, 3) for k, v in top}))
+        top=json.dumps({n[:60]: round(sec * 1e3, 3) for n, sec in top}))
 
 
 def phase_lzhuf_profile(batch, blobs) -> None:
@@ -1849,30 +1745,22 @@ def phase_bzip2_slice(batch, blobs, stdlib_blob, cat, cat_want):
     return launches
 
 
-def phase_bzip2_timing(batch, blobs, smi) -> None:
+def phase_bzip2_profile(blobs) -> None:
+    """One bzip2 decode call of the headline blobs under torch.profiler, as
+    phase 11: the time of each of the walk's kernels and the iBWT's."""
     from tpz_torch import api
-    from tpz_torch.codecs import bzip2
     from tpz_torch.kernels import bzip2_walk as bw
     from tpz_torch.kernels import ibwt_walk as iw
 
-    total = sum(len(d) for d in batch)
-    median, times = warm_median(lambda _: api.decompress_many(
-        blobs, "bzip2", device="cuda"), range(TIMING_ITERS))
-    log("bzip2-timing", mb_per_s=f"{total / median / 1e6:.2f}",
-        median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
-        card=f"'{smi}'")
-    split = stage_split(lambda hook: bzip2.decompress_many(
-        blobs, device="cuda", stage_hook=hook))
-    log("bzip2-timing", **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
     profile_call(lambda: api.decompress_many(blobs, "bzip2", device="cuda"),
                  "bzip2-decode", {"walk": bw.bzip2_walk, "ibwt": iw.ibwt},
-                 phase="bzip2-timing")
+                 phase="bzip2-profile")
 
 
 def bzip2_inputs(batch):
     """The bzip2 phases' streams: the headline batch at oracle level 9, a
     16 MiB stdlib level-9 stream, a two-stream concatenation (stdlib level
-    1 then oracle level 9), the small streams of phase 13 (about 5,000
+    1 then oracle level 9), the small streams of phase 12 (about 5,000
     symbols a block: the plain walk takes one trip per symbol, about 2 ms
     each on the card), one with zeroed symbol bits, and its long level-1
     blocks, the last with symbol bits zeroed three quarters in."""
@@ -2009,7 +1897,7 @@ def phase_bzip2_encode_kernels(batch):
 
 def phase_bzip2_encode_slice(batch, blobs):
     """bzip2 encode through the api on the card: the headline batch at
-    level 9 equals the oracle's blobs of phase 13 and round-trips through
+    level 9 equals the oracle's blobs of phase 12 and round-trips through
     bz2 and the port's decode, one dispatch launching the MTF kernel for
     the symbols and the selectors; api.compress on 1 MiB at level 1, b"",
     b"a" and bytes(range(256)) * 40 the same, and the 1 MiB buffer again
@@ -2074,25 +1962,16 @@ def phase_bzip2_encode_slice(batch, blobs):
     return c["mtf"]
 
 
-def phase_bzip2_encode_timing(batches, smi) -> None:
+def phase_bzip2_encode_profile(batch) -> None:
+    """One bzip2 level-9 encode call of the headline batch under
+    torch.profiler, as phase 11: the MTF's kernels."""
     from tpz_torch import api
-    from tpz_torch.codecs import bzip2
-    from tpz_torch.kernels import bwt, mtf
+    from tpz_torch.kernels import mtf
 
-    total = sum(len(d) for d in batches[0])
-    median, times = warm_median(lambda b: api.compress_many(
-        b, "bzip2", BZIP2_LEVEL, device="cuda"), batches)
-    log("bzip2-encode-timing", mb_per_s=f"{total / median / 1e6:.2f}",
-        median_s=f"{median:.4f}", all_s=[round(t, 4) for t in times],
-        bwt_rounds=bwt.bwt_batched.rounds, card=f"'{smi}'")
-    split = stage_split(lambda hook: bzip2.compress_many(
-        batches[-1], BZIP2_LEVEL, device="cuda", stage_hook=hook))
-    log("bzip2-encode-timing",
-        **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
-    profile_call(lambda: api.compress_many(batches[0], "bzip2", BZIP2_LEVEL,
+    profile_call(lambda: api.compress_many(batch, "bzip2", BZIP2_LEVEL,
                                            device="cuda"),
                  "bzip2-encode", {"mtf": mtf.mtf_ranks},
-                 phase="bzip2-encode-timing")
+                 phase="bzip2-encode-profile")
 
 
 def compare_v3w(inputs, cfg):
@@ -2704,7 +2583,7 @@ def phase_sharded_step(data, bodies, smi):
     shard, every block's token count is positive, and is_token equals the
     plain reach route (_reach_doubling) on the same lengths on the card;
     find_matches at 1 MiB on the card equals the same call on the CPU; and
-    ragged_all_gather equals ring_all_gather on the card on phase 27's
+    ragged_all_gather equals ring_all_gather on the card on phase 26's
     member bodies. Returns #8's launches."""
     from tpz_torch.kernels import matchfinder as mf
     from tpz_torch.kernels import parse
@@ -2824,7 +2703,7 @@ def phase_distributed(data, smi):
 
 def distributed_rank(rank, coordinator, data, work_dir, span_bytes, device,
                      formats):
-    """One rank of the two-process job (phase 30; on the CPU in
+    """One rank of the two-process job (phase 29; on the CPU in
     tests/test_torch_parallel.py): it joins the gloo group at
     `coordinator`, then for each format rank 1 writes its spans into
     work_dir/<format>, both ranks meet at a barrier, and rank 0 encodes
@@ -2898,122 +2777,6 @@ def two_process_job(data, work_dir, span_bytes, device, formats, timeout):
     return out, dt
 
 
-BENCH_ROWS = ("deflate_decode_host", "deflate_encode_host",
-              "deflate_decode_device", "deflate_decode_device_batched",
-              "deflate_decode_device_foreign", "bzip2_encode_device",
-              "bzip2_decode_device", "bzip2_decode_host",
-              "lzhuf_encode_device", "lzhuf_encode_device_batched",
-              "lzhuf_decode_device", "lzhuf_decode_host")
-# A share of a roofline above this means the model counts work the path
-# never does.
-BENCH_PCT_MAX = 105.0
-# Phase 31(a)'s bytes a headline buffer, half the bench's default: the
-# bench's corpus is most of the phase, and at 16 MiB the script took
-# 929 s of its 1,200 on a slow host.
-BENCH_BYTES = 8 * MIB
-
-
-def run_bench(*args):
-    """python -m tpz_torch bench with `args` as a subprocess: (its stdout
-    lines, seconds); raises unless it exits 0."""
-    from tpz_torch import REPO_ROOT
-
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "tpz_torch", "bench", *args],
-                       capture_output=True, text=True, cwd=REPO_ROOT,
-                       env=dict(os.environ, PYTHONPATH=REPO_ROOT),
-                       timeout=900)
-    if r.returncode:
-        raise RuntimeError(f"bench {args}: exit {r.returncode}\n"
-                           f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
-    return r.stdout.strip().splitlines(), time.perf_counter() - t0
-
-
-def phase_bench(enc_mb_s, smi) -> None:
-    """python -m tpz_torch bench on the card. (a) At its defaults but
-    --bytes BENCH_BYTES: the last line under 1 KB, device_ran, a positive
-    value, backend "cuda"; every reference row without error or skip;
-    every roofline share of the kernel ceiling at most BENCH_PCT_MAX; the
-    headline GB/s x 1,000 within 0.5-2x of phase 5's gzip encode MB/s
-    (the same call on buffers of half the size).
-    (b) Headline only at 1 MiB, one batch, traced: the chrome trace in
-    its directory names the v3 parse walk's kernel."""
-    from tpz_torch import REPO_ROOT
-    from tpz_torch.kernels import parse
-    from tpz_torch.utils import roofline
-
-    torch.cuda.empty_cache()  # the subprocess needs the card's memory
-    lines, seconds = run_bench("--device", "cuda",
-                               "--bytes", str(BENCH_BYTES))
-    if len(lines[-1].encode()) >= 1024:
-        raise RuntimeError(f"bench: last line {len(lines[-1])} bytes")
-    last = json.loads(lines[-1])
-    if not (last["device_ran"] is True and last["backend"] == "cuda"
-            and isinstance(last["value"], float) and last["value"] > 0):
-        raise RuntimeError(f"bench: last line {last}")
-    detail = json.loads(lines[-2])["detail"]
-    rows = detail["extra_metrics"]
-    bad = [n for n in BENCH_ROWS
-           if n not in rows or "error" in rows[n] or "skipped" in rows[n]]
-    if bad:
-        raise RuntimeError(f"bench rows {bad}: "
-                           f"{ {n: rows.get(n) for n in bad} }")
-    priced = {"headline": detail["headline"],
-              **{n: rows[n] for n in roofline.MODELS if n in rows}}
-    if roofline.peaks(detail["card"]) is not None:
-        lacking = [n for n, row in priced.items() if "roofline" not in row]
-        over = {n: row["roofline"]["pct_of_kernel"]
-                for n, row in priced.items() if "roofline" in row
-                and row["roofline"]["pct_of_kernel"] > BENCH_PCT_MAX}
-        if lacking or over:
-            raise RuntimeError(f"bench roofline: missing {lacking}, "
-                               f"pct_of_kernel above {BENCH_PCT_MAX}: {over}")
-    head = detail["headline"]
-    ratio = last["value"] * 1e3 / enc_mb_s
-    if not 0.5 <= ratio <= 2.0:
-        raise RuntimeError(f"bench headline {last['value']} GB/s against "
-                           f"phase 5's {enc_mb_s:.2f} MB/s")
-    log("bench", bytes=head["bytes"], value_GB_s=last["value"],
-        median_s=head["median_s"],
-        all_s=head["all_s"], ratio=head["compression_ratio"],
-        vs_phase5=f"{ratio:.3f}", card=f"'{smi}'")
-    for name in BENCH_ROWS:
-        row = rows[name]
-        rl = row.get("roofline", {})
-        log("bench", row=name, MB_s=row["MB_s"],
-            MB_s_cold=row.get("MB_s_cold"),
-            pct_of_kernel=rl.get("pct_of_kernel"),
-            kernel_achievable_MB_s=rl.get("kernel_achievable_MB_s"),
-            dominant=json.dumps(rl.get("dominant_terms")).replace(" ", ""))
-    rl = head.get("roofline", {})
-    log("bench", row="headline", pct_of_kernel=rl.get("pct_of_kernel"),
-        kernel_achievable_MB_s=rl.get("kernel_achievable_MB_s"),
-        dominant=json.dumps(rl.get("dominant_terms")).replace(" ", ""))
-    log("bench", build=json.dumps(detail["build"]).replace(" ", ""),
-        rates=json.dumps(detail["rates"]).replace(" ", ""),
-        power=f"'{detail['card_power']}'", seconds=f"{seconds:.1f}")
-
-    build = os.path.join(REPO_ROOT, "build")
-    os.makedirs(build, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build) as tmp:
-        _, seconds = run_bench("--device", "cuda", "--headline-only",
-                               "--bytes", str(MIB), "--iters", "1",
-                               "--trace", tmp)
-        traces = [f for f in os.listdir(tmp) if f.endswith(".json")]
-        if len(traces) != 1:
-            raise RuntimeError(f"bench --trace wrote {traces}")
-        with open(os.path.join(tmp, traces[0])) as f:
-            events = json.load(f)["traceEvents"]
-    (kernel,) = parse.parse_extend_v3.kernels
-    found = [e["name"] for e in kernel_events(events)
-             if names_kernel(e["name"], kernel)]
-    if not found:
-        raise RuntimeError(f"bench trace: no {kernel} kernel among "
-                           f"{len(kernel_events(events))} kernel events")
-    log("bench", trace=traces[0], kernel=kernel, launches=len(found),
-        seconds=f"{seconds:.1f}")
-
-
 def main() -> int:
     import tpz_torch  # noqa: F401 — fails at once outside a checkout
     from tpz_torch.utils import corpus
@@ -3023,11 +2786,10 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
-    # Seeds as bench.py: 1000, 1001 for the slice, fresh ones per timed
-    # iteration.
+    # The headline batch (seeds 1000, 1001) and a second one (1002, 1003)
+    # that completes the sharded phases' 64 MiB.
     nb = HEADLINE_BUFFERS
-    specs = [(HEADLINE_BYTES, 1000 + i)
-             for i in range(nb * (1 + TIMING_ITERS))]
+    specs = [(HEADLINE_BYTES, 1000 + i) for i in range(2 * nb)]
     t0 = time.perf_counter()
     bufs = make_corpus(specs)
     log("corpus", buffers=len(bufs), seconds=f"{time.perf_counter() - t0:.1f}")
@@ -3038,27 +2800,24 @@ def main() -> int:
     screen = phase_screen_kernel(batches[0])
     pack = phase_bitpack_kernel(batches[0])
     launches, blobs = phase_slice(batches[0])
-    enc_mb_s = phase_timing(batches[1:], smi)
     hdr_len = len(gzip_codec.header_bytes(LEVEL))
     walk, resolve = phase_decode_kernels(small, batches[0][0],
                                          blobs[0][hdr_len:-8])
     dec = phase_decode_slice(batches[0], blobs)
-    phase_decode_timing(batches[0], blobs, smi)
     parse_v1, lz_walk = phase_lzhuf_kernels(small["mixed"], batches[0])
     lz_blobs, lz = phase_lzhuf_slice(batches[0], small["mixed"])
-    phase_lzhuf_timing(batches[1:], batches[0], lz_blobs, smi)
     phase_lzhuf_profile(batches[0], lz_blobs)
     lz_blob = lz_blobs[0]
     del lz_blobs
     bz_blobs, stdlib_blob, cat, small_bz, long_bz = bzip2_inputs(batches[0])
     bz_walk, bz_ibwt = phase_bzip2_kernels(small_bz, long_bz, bz_blobs)
     bz = phase_bzip2_slice(batches[0], bz_blobs, stdlib_blob, *cat)
-    phase_bzip2_timing(batches[0], bz_blobs, smi)
+    phase_bzip2_profile(bz_blobs)
     mtf_row = phase_bzip2_encode_kernels(batches[0])
     mtf_n = phase_bzip2_encode_slice(batches[0], bz_blobs)
     bz_blob = bz_blobs[0]
     del bz_blobs
-    phase_bzip2_encode_timing(batches[1:], smi)
+    phase_bzip2_encode_profile(batches[0])
     reach, reach_n, v3w, v3w_n = phase_parse_kernels_8_9(batches[0], small)
     phase_decode_profile(blobs)
     phase_encode_profile(batches[0])
@@ -3075,7 +2834,7 @@ def main() -> int:
     crc_n, crc_row = phase_checksums(small, data, smi)
     phase_cli()
     # The sharded shape on 64 MiB: the first four headline buffers. Phase
-    # 27 takes them rotated by 8 MiB, so that its cuts fall inside a
+    # 26 takes them rotated by 8 MiB, so that its cuts fall inside a
     # buffer, where a member loses context, and not at the seams between
     # two independent buffers.
     data64 = b"".join(batches[0] + batches[1])
@@ -3084,7 +2843,6 @@ def main() -> int:
     sharded_mtf = phase_sharded_bzip2(data64, smi)
     step_reach = phase_sharded_step(data64, bodies, smi)
     phase_distributed(data64, smi)
-    phase_bench(enc_mb_s, smi)
     log("total", script_s=f"{time.perf_counter() - start:.1f}")
     # Each kernel's launches come from its own main-path calls: gzip encode
     # and sharded_compress (#1), gzip decode (#2, #3), lh5 encode (#4), lh5

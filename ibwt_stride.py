@@ -21,6 +21,7 @@ import sys
 import torch
 
 import chip_smoke as cs
+from tpz_torch.utils.corpus import make_corpus
 
 STRIDES = (2048, 256, 128, 64, 32, 16)
 # Walk threads resident per SM asked for (0: as many as fit).
@@ -34,8 +35,8 @@ def main() -> int:
 
     smi = cs.phase_device()
     cs.phase_build()
-    batch = cs.make_corpus([(cs.HEADLINE_BYTES, 1000 + i)
-                            for i in range(cs.HEADLINE_BUFFERS)])
+    batch = make_corpus([(cs.HEADLINE_BYTES, 1000 + i)
+                         for i in range(cs.HEADLINE_BUFFERS)])
     blobs = [oracle.bzip2_encode(d, cs.BZIP2_LEVEL) for d in batch]
     t, N, S = cs.bzip2_layout(blobs)
     recs, meta = bw.bzip2_walk(*(t[k] for k in bw.WALK_ARGS), S)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import sys
 
 import chip_smoke as cs
+from tpz_torch.utils.corpus import make_corpus
 
 PAIRS = ((32, 32), (48, 21), (64, 16), (128, 8))
 
@@ -31,7 +32,7 @@ def main() -> int:
 
     smi = cs.phase_device()
     cs.phase_build()
-    data = cs.make_corpus([(cs.HEADLINE_BYTES, 1000)])[0]
+    data = make_corpus([(cs.HEADLINE_BYTES, 1000)])[0]
     t = cs.lzhuf_walk_inputs(
         oracle.lzhuf_encode(data, cs._dict_bits(cs.LZHUF_METHOD),
                             lp.MAX_CHAIN), len(data), cs.LZHUF_METHOD)

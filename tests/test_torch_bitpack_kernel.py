@@ -275,7 +275,7 @@ def test_a_wrong_input_raises_on_the_card(card, batch_args):
 def headline(card):
     """The gzip6.archive cell's request: 2 x 16 MiB of corpus.mixed (the
     headline seeds of chip_smoke.py)."""
-    from tpz_torch.bench import make_corpus
+    from tpz_torch.utils.corpus import make_corpus
 
     return make_corpus([(16 << 20, 1000), (16 << 20, 1001)])
 

@@ -20,7 +20,7 @@ import tpz.action as jaction
 import tpz.constants as jconstants
 import tpz.errors as jerrors
 from tpz.utils import corpus as jcorpus
-from tpz_torch import REPO_ROOT, api, bench, oracle
+from tpz_torch import REPO_ROOT, api, oracle
 from tpz_torch import action, constants, errors
 from tpz_torch.kernels import checksums
 from tpz_torch.utils import corpus
@@ -147,21 +147,13 @@ def test_port_loads_nothing_from_the_reference_package():
         "jax": False, "tpz": False, "ref": []}
 
 
-# The bench and its two helpers, each imported and driven on the CPU in a
+# The helpers the root tools use, each imported and driven on the CPU in a
 # fresh interpreter of its own.
 _BENCH_MODULES = {
-    "bench": (
-        "import torch\n"
-        "from tpz_torch import bench\n"
-        "torch.set_num_threads(1)\n"
-        "dev = torch.device('cpu')\n"
-        "assert bench.build_all(dev)['oracle']['cache'] == 'found'\n"
-        "assert bench.headline(4096, 1, 1, dev)['compression_ratio'] > 0\n"),
-    "roofline": (
-        "from tpz_torch.utils import roofline\n"
-        "rates = roofline.measure_rates('cpu', rows=2, m=1024, reps=1)\n"
-        "assert roofline.annotate('deflate_encode_device', 1 << 20, 1.0,\n"
-        "                         rates=rates, card='NVIDIA H100 80GB HBM3')\n"),
+    "corpus": (
+        "from tpz_torch.utils import corpus\n"
+        "bufs = corpus.make_corpus([(4096, 1), (4096, 2)])\n"
+        "assert bufs == [corpus.mixed(4096, 1), corpus.mixed(4096, 2)]\n"),
     "profiling": (
         "import tempfile, torch\n"
         "from tpz_torch.utils import profiling\n"
@@ -174,12 +166,10 @@ _BENCH_MODULES = {
 
 @pytest.mark.parametrize("module", sorted(_BENCH_MODULES))
 def test_bench_modules_load_nothing_from_the_reference_package(module):
-    """`tpz_torch.bench` (its oracle build and a headline batch on the
-    CPU), `utils.roofline` (rates measured on the CPU, an annotation) and
+    """`utils.corpus.make_corpus` (two small buffers) and
     `utils.profiling` (a CPU trace of a spanned region), each in a
     fresh interpreter: jax stays unloaded and no loaded module's file
     lies under tpz/."""
-    oracle.build()  # so the child finds it
     code = _BENCH_MODULES[module] + (
         "import json, os, sys\n"
         "from tpz_torch import REPO_ROOT\n"
@@ -208,11 +198,10 @@ def test_bench_modules_load_nothing_from_the_reference_package(module):
     lambda: api.CodecStream("gzip"),
     lambda: checksums.crc32(b"abc"),
     lambda: checksums.adler32(b"abc"),
-    lambda: bench.main(["--headline-only"]),
 ], ids=["compress", "compress_many", "decompress", "decompress_many",
         "bzip2-decompress", "bzip2-decompress_many", "bzip2-compress",
         "bzip2-compress_many", "lzss-compress", "codec-stream", "crc32",
-        "adler32", "bench"])
+        "adler32"])
 def test_entry_points_default_to_the_card(call):
     """The entry points run on the card unless the caller asks for the
     CPU; with no card they raise instead of running elsewhere."""

@@ -7,7 +7,7 @@ corpus. Everything compared is integers or bytes, so the tolerance is
 exact equality. JAX's sharded encodes are the dear part: each runs once,
 at level 1, in a module fixture. The real two-process job (two spawned
 ranks joined by torch.distributed over gloo on 127.0.0.1) is the one
-chip_smoke.py's phase 30 runs on the card, here with device "cpu"."""
+chip_smoke.py's phase 29 runs on the card, here with device "cpu"."""
 
 import bz2
 import gzip

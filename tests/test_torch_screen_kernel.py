@@ -131,7 +131,7 @@ def test_kernel_equals_plain_small_geometry(card, r, screen_bytes, restart,
 def cell_layout(card):
     """The gzip6.archive cell's screen input: 2 x 16 MiB of corpus.mixed
     (the headline seeds of chip_smoke.py), 512 rows on the card."""
-    from tpz_torch.bench import make_corpus
+    from tpz_torch.utils.corpus import make_corpus
 
     datas = make_corpus([(16 << 20, 1000), (16 << 20, 1001)])
     span, so, sl, bl, _, bfinal, _ = (

@@ -1,9 +1,9 @@
-"""CLI: python -m tpz_torch {compress,decompress,selftest,bench} ...
+"""CLI: python -m tpz_torch {compress,decompress,selftest} ...
 
 The port of `python -m tpz`, with `-b/--backend` replaced by `--device`
 (default "cuda"; "cuda" without a card fails). compress, decompress and
 selftest print one JSON line of statistics to stderr, as the reference's
-do; `bench` runs `tpz_torch.bench` (its two JSON lines go to stdout).
+do. The reference's `bench` is not ported: `benchmark/` measures the port.
 """
 
 from __future__ import annotations
@@ -41,14 +41,7 @@ def main(argv=None) -> int:
                        help="round-trip every format on synthetic data")
     s.add_argument("-n", type=int, default=1 << 16)
     add_common(s)
-    from tpz_torch import bench
-
-    bench.add_arguments(sub.add_parser(
-        "bench", help="time the codecs (see tpz_torch/bench.py)"))
-    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
-    if args.cmd == "bench":
-        return bench.main(argv[1:])
 
     from tpz_torch import api
 

@@ -76,115 +76,12 @@ def _host_inflate(stream: bytes) -> tuple[bytes, int]:
 
 # ----------------------------------------------------------- symbol walk
 
-def symbol_walk_plain(stream_words, body_bit_local, out_len, tab, len_base,
-                      len_extra, dist_base, dist_extra, start_pos):
-    """The plain version of the symbol walk (the reference's lane-parallel
-    _symbol_walk_vz): every entry advances one token per loop trip, so
-    the trip count is the largest token count of any entry.
-
-    stream_words [NB, SW] int32 (LE u32 words of each entry's slice);
-    body_bit_local, out_len, start_pos [NB] int32; tab [NB, TAB_WIDTH]
-    int32, the fused [lit L1 | lit L2 | dist L1 | dist L2] tables;
-    len_base, len_extra [29], dist_base, dist_extra [30] int32. Returns
-    markers [NB, BLOCK] int32: one at each token's output position, 0
-    elsewhere. Stream words ride in int64 so shifts are logical (H2/H3)."""
-    NB, SW = stream_words.shape
-    TW = tab.shape[1]
-    dev = stream_words.device
-    L1B = C.INFLATE_L1_BITS
-    L1M = (1 << L1B) - 1
-    OLIT2 = 1 << L1B
-    ODIST1 = C.INFLATE_LIT_TW
-    ODIST2 = ODIST1 + (1 << L1B)
-    s_flat = as_u32(stream_words).reshape(-1)
-    t_flat = as_u32(tab).reshape(-1)
-    lb, le, db, de = (x.to(torch.int64) for x in (len_base, len_extra,
-                                                   dist_base, dist_extra))
-    seg = torch.arange(NB, device=dev, dtype=torch.int64)
-    s_base = seg * SW
-    t_base = seg * TW
-    o_base = seg * (BLOCK + 1)
-    ol = out_len.to(torch.int64)
-    bitpos = body_bit_local.to(torch.int64)
-    out_pos = start_pos.to(torch.int64)
-    ok = torch.ones(NB, dtype=torch.bool, device=dev)
-    # Column BLOCK takes the writes of finished entries.
-    out = torch.zeros(NB * (BLOCK + 1), dtype=torch.int32, device=dev)
-
-    trip = 0
-    while trip % 16 or bool((ok & (out_pos < ol)).any()):
-        trip += 1
-        act = ok & (out_pos < ol)
-        sh = bitpos & 31
-        wc = s_base + torch.clamp(bitpos >> 5, 0, SW - 3)
-        w0, w1, w2 = s_flat[wc], s_flat[wc + 1], s_flat[wc + 2]
-        # Bits [sh, sh + 64) of the 96-bit window (w0, w1, w2) in one int64
-        # (an int64 shift by 32 is defined: it gives 0 after the mask). A
-        # token reads at most 48 bits past sh, and a field of n <= 15 bits
-        # at offset off <= 48 ends below bit 63, so the sign bit that the
-        # top word may set never reaches a field.
-        lo = ((w0 >> sh) | (w1 << (32 - sh))) & U32
-        hi = ((w1 >> sh) | (w2 << (32 - sh))) & U32
-        win = lo | (hi << 32)
-
-        def bits_at(off, n):
-            return (win >> off) & ((1 << n) - 1)
-
-        peek = bits_at(0, 15)
-        e1 = t_flat[t_base + (peek & L1M)]
-        e1b = t_flat[t_base + torch.clamp(
-            OLIT2 + (e1 >> 5) + ((peek >> L1B) & 31), max=TW - 1)]
-        e = torch.where((e1 & 31) == 31, e1b, e1)
-        clen = e & 31
-        sym = e >> 5
-        okn = ok & (clen > 0) & (sym != 256) & (sym <= 285)
-
-        is_match = sym > 256
-        li = torch.clamp(sym - 257, 0, 28)
-        eb = le[li]
-        lval = lb[li] + bits_at(clen, eb)
-        pk = bits_at(clen + eb, 15)
-        d1 = t_flat[t_base + ODIST1 + (pk & L1M)]
-        d1b = t_flat[t_base + torch.clamp(
-            ODIST2 + (d1 >> 5) + ((pk >> L1B) & 31), max=TW - 1)]
-        e2 = torch.where((d1 & 31) == 31, d1b, d1)
-        dlen = e2 & 31
-        ds = torch.clamp(e2 >> 5, 0, 29)
-        okn = okn & (~is_match | (dlen > 0))
-        deb = de[ds]
-        dval = db[ds] + bits_at(clen + eb + dlen, deb)
-
-        nbits = torch.where(is_match, clen + eb + dlen + deb, clen)
-        adv = torch.where(is_match, lval, 1)
-        mark = torch.where(is_match, (_KIND_MATCH << 28) | (dval << 9) | lval,
-                           (_KIND_LIT << 28) | sym)
-        mark = torch.where(okn, mark, 0)
-        adv = torch.where(okn, adv, BLOCK)  # corrupt stream: abort the entry
-
-        col = torch.where(act, out_pos, BLOCK)
-        out.index_put_((o_base + col,), mark.to(torch.int32))
-        bitpos = torch.where(act, bitpos + nbits, bitpos)
-        out_pos = torch.where(act, out_pos + adv, out_pos)
-        ok = torch.where(act, okn, ok)
-    return out.reshape(NB, BLOCK + 1)[:, :BLOCK]
-
-
-# The speculative walk (csrc/symbol_walk.cu): lanes a chain (at most 256),
-# and token starts each lane records for the stitch (E, at most 64). The
-# result depends on neither; E bounds how late a lane may fall into step
-# with the true walk before its boundary takes the slow route.
-SPEC_LANES = 128
-SPEC_RECORDS = 8
-
-_MET, _THROUGH, _ENDED, _NONE = range(4)
-_RANGE, _INVALID, _CAP = range(3)
-
-
 def _token_decoder(stream_words, tab, len_base, len_extra, dist_base,
                    dist_extra):
     """decode(chain, bitpos) -> (ok, nbits, nout, marker), int64 tensors:
     the token at bitpos of each chain's slice, as the serial walk decodes
-    it (ok false for an invalid symbol or distance code, or symbol 256)."""
+    it (ok false for an invalid symbol or distance code, or symbol 256).
+    Stream words ride in int64 so shifts are logical (H2/H3)."""
     NB, SW = stream_words.shape
     TW = tab.shape[1]
     L1B = C.INFLATE_L1_BITS
@@ -199,6 +96,11 @@ def _token_decoder(stream_words, tab, len_base, len_extra, dist_base,
         sh = bitpos & 31
         wc = chain * SW + torch.clamp(bitpos >> 5, 0, SW - 3)
         w0, w1, w2 = s_flat[wc], s_flat[wc + 1], s_flat[wc + 2]
+        # Bits [sh, sh + 64) of the 96-bit window (w0, w1, w2) in one int64
+        # (an int64 shift by 32 is defined: it gives 0 after the mask). A
+        # token reads at most 48 bits past sh, and a field of n <= 15 bits
+        # at offset off <= 48 ends below bit 63, so the sign bit that the
+        # top word may set never reaches a field.
         lo = ((w0 >> sh) | (w1 << (32 - sh))) & U32
         hi = ((w1 >> sh) | (w2 << (32 - sh))) & U32
         win = lo | (hi << 32)
@@ -236,6 +138,59 @@ def _token_decoder(stream_words, tab, len_base, len_extra, dist_base,
         return ok, nbits, nout, mark
 
     return decode
+
+
+def symbol_walk_plain(stream_words, body_bit_local, out_len, tab, len_base,
+                      len_extra, dist_base, dist_extra, start_pos):
+    """The plain version of the symbol walk (the reference's lane-parallel
+    _symbol_walk_vz): every entry advances one token per loop trip, so
+    the trip count is the largest token count of any entry.
+
+    stream_words [NB, SW] int32 (LE u32 words of each entry's slice);
+    body_bit_local, out_len, start_pos [NB] int32; tab [NB, TAB_WIDTH]
+    int32, the fused [lit L1 | lit L2 | dist L1 | dist L2] tables;
+    len_base, len_extra [29], dist_base, dist_extra [30] int32. Returns
+    markers [NB, BLOCK] int32: one at each token's output position, 0
+    elsewhere."""
+    NB = stream_words.shape[0]
+    dev = stream_words.device
+    decode = _token_decoder(stream_words, tab, len_base, len_extra,
+                            dist_base, dist_extra)
+    seg = torch.arange(NB, device=dev, dtype=torch.int64)
+    o_base = seg * (BLOCK + 1)
+    ol = out_len.to(torch.int64)
+    bitpos = body_bit_local.to(torch.int64)
+    out_pos = start_pos.to(torch.int64)
+    ok = torch.ones(NB, dtype=torch.bool, device=dev)
+    # Column BLOCK takes the writes of finished entries.
+    out = torch.zeros(NB * (BLOCK + 1), dtype=torch.int32, device=dev)
+
+    trip = 0
+    while trip % 16 or bool((ok & (out_pos < ol)).any()):
+        trip += 1
+        act = ok & (out_pos < ol)
+        okn, nbits, adv, mark = decode(seg, bitpos)
+        okn = ok & okn
+        mark = torch.where(okn, mark, 0)
+        adv = torch.where(okn, adv, BLOCK)  # corrupt stream: abort the entry
+
+        col = torch.where(act, out_pos, BLOCK)
+        out.index_put_((o_base + col,), mark.to(torch.int32))
+        bitpos = torch.where(act, bitpos + nbits, bitpos)
+        out_pos = torch.where(act, out_pos + adv, out_pos)
+        ok = torch.where(act, okn, ok)
+    return out.reshape(NB, BLOCK + 1)[:, :BLOCK]
+
+
+# The speculative walk (csrc/symbol_walk.cu): lanes a chain (at most 256),
+# and token starts each lane records for the stitch (E, at most 64). The
+# result depends on neither; E bounds how late a lane may fall into step
+# with the true walk before its boundary takes the slow route.
+SPEC_LANES = 128
+SPEC_RECORDS = 8
+
+_MET, _THROUGH, _ENDED, _NONE = range(4)
+_RANGE, _INVALID, _CAP = range(3)
 
 
 def _carry(decode, chain, x, c, i, rbit, nrec, end, cap):
@@ -430,12 +385,12 @@ def symbol_walk(stream_words, body_bit_local, out_len, tab, len_base,
                 len_extra, dist_base, dist_extra, start_pos,
                 walk_end_bit=None):
     """The symbol walk: the plain version for CPU tensors, the CUDA kernel
-    (csrc/symbol_walk.cu: a warp a chain decoding from guessed bit
-    offsets, stitched, then emitting) for CUDA tensors. Arguments as
-    symbol_walk_plain; all int32 and contiguous. walk_end_bit [NB] int32
-    (optional) is each chain's end bit, slice-local: a hint where to put
-    the guesses, on which the result does not depend; the plain version
-    ignores it. After a launch, symbol_walk.last_stats holds, on the
+    (csrc/symbol_walk.cu: a CUDA block a chain, whose SPEC_LANES lanes
+    decode from guessed bit offsets, stitched, then emit) for CUDA
+    tensors. Arguments as symbol_walk_plain; all int32 and contiguous.
+    walk_end_bit [NB] int32 (optional) is each chain's end bit,
+    slice-local: a hint where to put the guesses, on which the result
+    does not depend; the plain version ignores it. After a launch, symbol_walk.last_stats holds, on the
     card, [lane boundaries met in pass B, carried through in pass B
     without meeting (the slow route), re-walked in the stitch]."""
     args = (stream_words, body_bit_local, out_len, tab, len_base, len_extra,

@@ -126,16 +126,11 @@ def lzhuf_walk_plain(stream_words, body_bit_local, out_len, start_pos, tab):
     stream_words [NB, SW] int32 (big-endian u32 words of each segment's
     slice); body_bit_local, out_len, start_pos [NB] int32; tab [NB, TW]
     int32 fused tables. Returns markers [NB, BLOCK] int32: one at each
-    token's output position, 0 elsewhere. Words ride in int64, so shifts
-    are logical (H2/H3)."""
-    NB, SW = stream_words.shape
-    TWr = tab.shape[1]
+    token's output position, 0 elsewhere."""
+    NB = stream_words.shape[0]
     dev = stream_words.device
-    s_flat = as_u32(stream_words).reshape(-1)
-    t_flat = as_u32(tab).reshape(-1)
+    decode = _token_decoder(stream_words, tab)
     seg = torch.arange(NB, device=dev, dtype=torch.int64)
-    s_base = seg * SW
-    t_base = seg * TWr
     o_base = seg * (BLOCK + 1)
     ol = out_len.to(torch.int64)
     bitpos = body_bit_local.to(torch.int64)
@@ -147,46 +142,7 @@ def lzhuf_walk_plain(stream_words, body_bit_local, out_len, start_pos, tab):
     while trip % 16 or bool((out_pos < ol).any()):
         trip += 1
         act = out_pos < ol
-        sh = bitpos & 31
-        wc = s_base + torch.clamp(bitpos >> 5, 0, SW - 3)
-        w0, w1, w2 = s_flat[wc], s_flat[wc + 1], s_flat[wc + 2]
-
-        def bits_at(off, n):
-            # MSB: n bits starting sh + off into the 96-bit window.
-            b = sh + off
-            wi = b >> 5
-            s2 = b & 31
-            lo = torch.where(wi == 0, w0, torch.where(wi == 1, w1, w2))
-            hi = torch.where(wi == 0, w1, torch.where(wi == 1, w2, 0))
-            v = ((lo << s2) & U32) | torch.where(s2 > 0, hi >> (32 - s2), 0)
-            if isinstance(n, int):
-                return v >> (32 - n)
-            return torch.where(n > 0, v >> ((32 - n) & 31), 0)
-
-        def lookup(l1, l2, off):
-            e = t_flat[t_base + l1 + bits_at(off, L1_BITS)]
-            e2 = t_flat[t_base + torch.clamp(
-                l2 + (e >> 5) + bits_at(off + L1_BITS, 5), max=TWr - 1)]
-            return torch.where((e & 31) == 31, e2, e)
-
-        e = lookup(0, OC2, 0)
-        clen = e & 31
-        csym = e >> 5
-        is_match = csym >= 256
-        mlen = torch.clamp(csym - 253, 3, 258)
-        pe = lookup(OP1, OP2, clen)
-        plen = pe & 31
-        pc = pe >> 5
-        raw_n = torch.clamp(pc - 1, min=0)
-        raw = bits_at(clen + plen, raw_n)
-        top = torch.where(raw_n < 32, 1 << torch.clamp(raw_n, max=31), 0)
-        pval = torch.where(pc > 1, top | raw, pc)
-        nbits = torch.where(is_match, clen + plen + raw_n, clen)
-        adv = torch.where(is_match, mlen, 1)
-        mark = torch.where(is_match,
-                           (_KIND_MATCH << 28) | ((pval << 9) & U32) | mlen,
-                           (_KIND_LIT << 28) | csym)
-
+        nbits, adv, mark = decode(seg, bitpos)
         col = torch.where(act, out_pos, BLOCK)
         out.index_put_((o_base + col,), to_i32(mark))
         bitpos = torch.where(act, bitpos + nbits, bitpos)
@@ -214,7 +170,7 @@ def _token_decoder(stream_words, tab):
     token at bitpos of each segment's slice as the kernel decodes it. A
     table row whose entries all fit 16 bits is read as the kernel stages
     it, narrowed (an escape keeps its level-2 chunk index) and widened
-    back."""
+    back. Words ride in int64, so shifts are logical (H2/H3)."""
     NB, SW = stream_words.shape
     s_flat = as_u32(stream_words).reshape(-1)
     t = as_u32(tab)

@@ -1,5 +1,6 @@
 """Deterministic synthetic test corpus (the port's copy of
-tpz/utils/corpus.py; the tests hold both to the same bytes).
+tpz/utils/corpus.py; the tests hold both to the same bytes), and
+`make_corpus`, which makes many `mixed` buffers in parallel processes.
 
 The real Canterbury/Silesia corpora are not available in this offline
 environment (SURVEY.md §6 protocol), so tests and benchmarks use seeded
@@ -12,6 +13,8 @@ bytes, so golden files derived from them are stable.
 from __future__ import annotations
 
 import functools
+import multiprocessing
+import os
 
 import numpy as np
 
@@ -133,6 +136,24 @@ def mixed(n: int, seed: int = 5) -> bytes:
     if len(blob) < n:
         blob += text(n - len(blob), seed + 6)
     return blob[:n]
+
+
+def _mixed(spec):
+    n, seed = spec
+    return mixed(n, seed=seed)
+
+
+def make_corpus(specs) -> list[bytes]:
+    """mixed buffers for (size, seed) pairs. A 16 MiB buffer takes ~25 s
+    of one core, so they are made in parallel processes, one per 4 MiB of
+    corpus and at most one a core; under 4 MiB in all they are made here,
+    as a worker's start (~2 s of imports) would cost more."""
+    procs = min(len(specs), os.cpu_count() or 1,
+                -(-sum(n for n, _ in specs) // (4 << 20)))
+    if procs <= 1:
+        return [_mixed(spec) for spec in specs]
+    with multiprocessing.get_context("spawn").Pool(procs) as pool:
+        return pool.map(_mixed, specs)
 
 
 #: Small adversarial inputs every codec must handle (SURVEY.md §4 item 1).

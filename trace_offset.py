@@ -29,33 +29,24 @@ import sys
 import time
 
 import chip_smoke as cs
+from benchmark import traceops
+from tpz_torch.utils.corpus import make_corpus
 
 
 def clipped_busy_ms(events, t0_us: float, t1_us: float) -> float:
-    """Busy ms of the trace's device events clipped to [t0_us, t1_us]."""
-    spans = sorted(
-        (max(float(e["ts"]), t0_us),
-         min(float(e["ts"]) + float(e.get("dur", 0)), t1_us))
-        for e in events
-        if e.get("ph") == "X" and e.get("cat") in cs.DEVICE_CATS)
-    busy, end = 0.0, -float("inf")
-    for a, b in spans:
-        if b > a and b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3
+    """Busy ms of the session's device events clipped to [t0_us, t1_us]."""
+    device = [e for e in events if e.cat in traceops.DEVICE_CATS]
+    return sum(max(0.0, min(b, t1_us) - max(a, t0_us))
+               for a, b in traceops.busy_intervals(device)) / 1e3
 
 
 def session(fn, counters, margin_s: float) -> dict:
     events, wall_ms, (t0, t1) = cs.traced_session(fn, "greedy_parse",
                                                   counters, margin_s)
-    host = {e["args"]["correlation"]: float(e["ts"]) for e in events
-            if e.get("cat") in cs.HOST_LAUNCH_CATS
-            and "correlation" in e.get("args", {})}
-    kernels = cs.kernel_events(events)
-    offsets = [float(k["ts"]) - host[k["args"]["correlation"]]
-               for k in kernels
-               if k.get("args", {}).get("correlation") in host]
+    host = {e.corr: e.ts for e in events
+            if e.cat in traceops.HOST_LAUNCH_CATS}
+    kernels = [e for e in events if e.cat == "kernel"]
+    offsets = [k.ts - host[k.corr] for k in kernels if k.corr in host]
     return {"margin_s": margin_s, "wall_ms": round(wall_ms, 4),
             "kernels": len(kernels),
             "missing": cs.missing_kernels(events, counters, t0, t1),
@@ -63,7 +54,8 @@ def session(fn, counters, margin_s: float) -> dict:
                                     round(max(offsets), 1)]
             if offsets else None,
             "clipped_busy_ms": round(clipped_busy_ms(events, t0, t1), 4),
-            "launched_busy_ms": round(cs.device_busy(events, t0, t1)[0], 4)}
+            "launched_busy_ms": round(traceops.busy_us(
+                traceops.launched(events, t0, t1)) / 1e3, 4)}
 
 
 def main() -> int:
@@ -78,8 +70,7 @@ def main() -> int:
 
     smi = cs.phase_device()
     cs.phase_build()
-    batch = cs.make_corpus([(cs.HEADLINE_BYTES, 1000 + i)
-                            for i in range(2)])
+    batch = make_corpus([(cs.HEADLINE_BYTES, 1000 + i) for i in range(2)])
     cfg = DeflateConfig(level=cs.LEVEL)
     inputs = cs.parse_inputs(batch, cfg, "cuda")
     _, mlen, mdist = parse.parse_extend_v3(*inputs, *cs._parse_args(cfg))
