@@ -361,3 +361,24 @@ def test_raw_compress_equals_the_oracle_and_checks_the_method():
         d, C.LZHUF_METHODS["lh6"][0], 16)
     with pytest.raises(ValueError, match="lzhuf method"):
         lzhuf.compress(d, "lh9", device="cpu")
+
+
+@pytest.mark.parametrize("method", ["lh4", "lh5", "lh6", "lh7"])
+def test_encode_plans_on_the_device(method, monkeypatch):
+    """No host plan on the encode path: with oracle.lzhuf_plan raising,
+    the bodies still equal the oracle's, and each group of buffers
+    (MAX_DEVICE_SPAN lowered so that these make three) is planned once on
+    the device."""
+    def host_plan(*args, **kwargs):
+        raise AssertionError("the encode called the host planner")
+
+    monkeypatch.setattr(oracle, "lzhuf_plan", host_plan)
+    monkeypatch.setattr(lp, "MAX_DEVICE_SPAN", 80_000)
+    bits = C.LZHUF_METHODS[method][0]
+    datas = [CASES[k] for k in ("mixed", "boundary+1", "repetitive",
+                                "random", "tiny", "empty")]
+    before = lp.device_plans
+    bodies = lp.compress_many(datas, method, device="cpu")
+    assert lp.device_plans == before + 3
+    for d, body in zip(datas, bodies):
+        assert body == oracle.lzhuf_encode(d, bits, 16)

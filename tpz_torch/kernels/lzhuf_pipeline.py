@@ -8,11 +8,13 @@ receives):
   screen   the spec-v1 hash screen (kernels/matchfinder.py)
   parse    the spec-v1 parse walk (kernels/parse.py; CUDA kernel on a card)
   hist     per-block c and p symbol histograms and token counts
-  plan     (host) cpp LzhufPlan per buffer: code lengths, canonical
-           codes, block headers at absolute bit offsets
-  pack     c and p codes with the raw distance bits, MSB-first bitpack
+  plan     kernels/lzhuf_plan_device.py on the device, all of the group's
+           blocks at once: code lengths, canonical codes, block header
+           slots, bit offsets; one copy of the buffers' bit totals
+  pack     c and p codes with the raw distance bits, and the header
+           slots, MSB-first bitpack into one set of words
   fetch    device-to-host copy of the packed words
-  merge    (host) each buffer's header bits OR-ed over its body bits
+  merge    (host) each buffer's stream cut from its word-aligned region
 Each buffer is its own stream, and all buffers' blocks share one batch.
 The bytes equal cpp/lzhuf.cc's LzhufEncodeBytes with max_chain 16
 (MAX_CHAIN, the reference codec's one profile).
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from tpz_torch import constants as C
-from tpz_torch import oracle
+from tpz_torch.kernels import lzhuf_plan_device
 from tpz_torch.kernels.bitpack import assemble_stream_msb
 from tpz_torch.kernels.deflate_pipeline import _device, _hist
 from tpz_torch.kernels.matchfinder import screen_candidates
@@ -39,6 +41,9 @@ MAX_CHAIN = 16
 # Largest batch one invocation encodes; bigger batches split into groups
 # of whole buffers (each buffer is its own stream).
 MAX_DEVICE_SPAN = 32 << 20
+
+# Groups planned on the device (one lzhuf_plan_device.plan call each).
+device_plans = 0
 
 
 def _bitlen16(p: torch.Tensor) -> torch.Tensor:
@@ -132,9 +137,9 @@ def compress(data: bytes, method: str = "lh5", device="cuda") -> bytes:
 
 def compress_many(datas, method: str = "lh5", device="cuda", *,
                   stage_hook=_nohook) -> list[bytes]:
-    """Batch encode: every buffer's blocks share one device batch; host
-    planning is per buffer and each buffer's bits pack into a word-aligned
-    region of one output. Returns raw LZHUF bodies (b"" for b"")."""
+    """Batch encode: every buffer's blocks share one device batch and one
+    device plan, and each buffer's bits pack into a word-aligned region of
+    one output. Returns raw LZHUF bodies (b"" for b"")."""
     device = _device(device)
     dict_bits, np_ = C.LZHUF_METHODS[method]
     window = 1 << dict_bits
@@ -149,8 +154,8 @@ def compress_many(datas, method: str = "lh5", device="cuda", *,
         if group and (i is None
                       or group_bytes + len(datas[i]) > MAX_DEVICE_SPAN):
             for gi, body in zip(group, _encode_group(
-                    [datas[g] for g in group], dict_bits, np_, window,
-                    device, stage_hook)):
+                    [datas[g] for g in group], np_, window, device,
+                    stage_hook)):
                 results[gi] = body
             group, group_bytes = [], 0
         if i is not None:
@@ -159,7 +164,8 @@ def compress_many(datas, method: str = "lh5", device="cuda", *,
     return results
 
 
-def _encode_group(datas, dict_bits, np_, window, device, stage_hook) -> list[bytes]:
+def _encode_group(datas, np_, window, device, stage_hook) -> list[bytes]:
+    global device_plans
     with stage("lzhuf", "blocks", stage_hook):
         blocks, span_off, span_len, block_len, nbs = make_blocks(
             datas, window, device)
@@ -171,43 +177,22 @@ def _encode_group(datas, dict_bits, np_, window, device, stage_hook) -> list[byt
         blocks, dev(span_off), dev(span_len), dev(block_len), MAX_CHAIN,
         window, np_, stage_hook)
     with stage("lzhuf", "plan", stage_hook):
-        c_hist_np = c_hist.cpu().numpy().astype(np.uint32)
-        p_hist_np = p_hist.cpu().numpy().astype(np.uint32)
-        ntokens_np = ntokens.cpu().numpy().astype(np.uint32)
-
-        # Per-buffer host plans; each buffer's stream at a word-aligned
-        # region of the shared output.
-        body_off = np.zeros(len(block_len), np.int64)
-        plans, region_bits = [], []
-        pos_bits = r0 = 0
-        for nb in nbs:
-            sl = slice(r0, r0 + nb)
-            plan = oracle.lzhuf_plan(c_hist_np[sl], p_hist_np[sl],
-                                     ntokens_np[sl], dict_bits)
-            body_off[sl] = plan["body_off"] + pos_bits
-            plans.append(plan)
-            region_bits.append(pos_bits)
-            pos_bits += (plan["total_bits"] + 31) // 32 * 32
-            r0 += nb
+        plan = lzhuf_plan_device.plan(c_hist, p_hist, ntokens, nbs, np_)
+    device_plans += 1
     # The exact word count: regions are cut out by bit offset below (the
     # reference rounds it up only to bound XLA recompiles).
-    total_words = max(1, -(-pos_bits // 32))
-
-    def table(key):
-        return dev(np.concatenate([p[key] for p in plans]).astype(np.int32))
+    total_words = max(1, -(-int(plan.region_bits[-1] + plan.total_bits[-1])
+                           // 32))
 
     with stage("lzhuf", "pack", stage_hook):
         words = _stage2(blocks[:, window:window + BLOCK].to(torch.int32),
-                        is_token, mlen, mdist, table("c_len"),
-                        table("c_code"), table("p_len"), table("p_code"),
-                        dev(body_off), total_words)
+                        is_token, mlen, mdist, plan.c_len, plan.c_code,
+                        plan.p_len, plan.p_code, plan.body_off, total_words)
+        # Header and body bits are disjoint: add is or.
+        words += assemble_stream_msb(plan.head_vals, plan.head_bits,
+                                     plan.head_off, total_words)
     with stage("lzhuf", "fetch", stage_hook):
         body = words.cpu().numpy().astype(">u4").view(np.uint8)  # MSB first
     with stage("lzhuf", "merge", stage_hook):
-        out = []
-        for plan, rb in zip(plans, region_bits):
-            total_bytes = (plan["total_bits"] + 7) // 8
-            b = plan["header"][:total_bytes].copy()
-            b |= body[rb // 8:rb // 8 + total_bytes]
-            out.append(b.tobytes())
-    return out
+        return [body[rb // 8:rb // 8 + (tb + 7) // 8].tobytes()
+                for rb, tb in zip(plan.region_bits, plan.total_bits)]

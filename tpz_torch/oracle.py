@@ -3,8 +3,10 @@
 The DEFLATE encode path calls its encoder only for a buffer above
 MAX_DEVICE_SPAN, as the reference does; otherwise that encoder is here
 for byte-identity checks (tests and `chip_smoke.py`). The LZHUF encode
-path calls its host planner (`lzhuf_plan`: code lengths, canonical codes
-and block headers), as the reference does. The bzip2 encode path calls its
+path plans its blocks on the device (kernels/lzhuf_plan_device.py); the
+host planner (`lzhuf_plan`: code lengths, canonical codes and block
+headers), which the reference calls, is the tests' reference for that
+plan. The bzip2 encode path calls its
 RLE1 and block split (`bzip2_rle1`), as the reference does. The decode
 paths call its
 host scans, as the reference does: the DEFLATE header scan and segment
