@@ -196,10 +196,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
               zlib stream, phase 13's level-9 bzip2 blob and phase 10's
               lh5 blob: each output equals its input, half of each blob
               raises UnexpectedEof; MB/s each
- 23. lzss     formats() equals the reference's list; 16 MiB of raw LZSS
-              through api.compress / decompress on "cuda" (the codec runs
-              on the host): bytes equal to the oracle's, the round trip
-              exact; MB/s both ways
+ 23. lzss     formats() equals the reference's list and "bgzf"; 16 MiB
+              of raw LZSS through api.compress / decompress on "cuda" (the
+              codec runs on the host): bytes equal to the oracle's, the
+              round trip exact; MB/s both ways
  24. checksums
               the CRC lane kernel against its plain version, exactly (the
               chunk registers and the combined one), on 1 MiB of
@@ -2300,8 +2300,8 @@ def phase_lzss(data) -> None:
     from tpz_torch import api, oracle
     from tpz_torch.codecs.lzss import LzssConfig
 
-    want = ["bzip2", "deflate", "gzip", "lh4", "lh5", "lh6", "lh7", "lzss",
-            "zlib"]
+    want = ["bgzf", "bzip2", "deflate", "gzip", "lh4", "lh5", "lh6", "lh7",
+            "lzss", "zlib"]
     if api.formats() != want:
         raise RuntimeError(f"formats() is {api.formats()}")
     t0 = time.perf_counter()

@@ -118,9 +118,10 @@ def test_huge_declared_size_raises_a_compression_error(size):
 
 
 def test_formats_equal_the_reference():
-    assert api.formats() == japi.formats()
-    assert api.formats() == ["bzip2", "deflate", "gzip", "lh4", "lh5",
-                             "lh6", "lh7", "lzss", "zlib"]
+    """The reference's formats, and BGZF, which only the port has."""
+    assert sorted(japi.formats() + ["bgzf"]) == api.formats()
+    assert api.formats() == ["bgzf", "bzip2", "deflate", "gzip", "lh4",
+                             "lh5", "lh6", "lh7", "lzss", "zlib"]
 
 
 @pytest.fixture
@@ -157,6 +158,8 @@ def test_register_format_round_trip(tables):
 
 
 def test_unknown_format_message_is_the_reference():
+    """The reference's message, its list of formats with the port's
+    "bgzf" first."""
     for call in (lambda: api.compress(b"abc", "lz77", device="cpu"),
                  lambda: api.decompress_many([b"abc"], "lz77",
                                              device="cpu")):
@@ -164,7 +167,8 @@ def test_unknown_format_message_is_the_reference():
             call()
         with pytest.raises(ValueError) as ref:
             japi.compress(b"abc", "lz77")
-        assert str(mine.value) == str(ref.value)
+        assert str(mine.value) == str(ref.value).replace(
+            "have ['bzip2'", "have ['bgzf', 'bzip2'")
 
 
 def test_lzss_validates_the_device():

@@ -30,7 +30,9 @@ from tpz_torch.codecs import gzip_codec
 from tpz_torch.errors import DataError
 from tpz_torch.utils import corpus
 
-FORMATS = api.formats()
+# The formats the reference has (the port's "bgzf" is held to its own
+# reference in test_torch_bgzf.py).
+FORMATS = japi.formats()
 NO_FLUSH = ("lh4", "lh5", "lh6", "lh7", "lzss")
 DATA = corpus.mixed(3000, seed=21)
 PARTS = (DATA[:1000], DATA[1000:2200], DATA[2200:])

@@ -1,13 +1,13 @@
 """Public entry points of the port: whole-buffer and batched encode and
-decode for "gzip", "deflate", "zlib", "bzip2", the LZHUF methods
-"lh4"-"lh7" and raw "lzss", `formats()` and `register_format`, and the
-streaming shapes `CodecStream` (encode, with the crate's Action
-semantics) and `DecodeStream`. They run on the card (`device="cuda"`)
-unless the caller asks for the CPU (`device="cpu"`); "cuda" without a card
-raises. Raw LZSS runs on the host whatever the device, as in the
-reference. Each call of `compress`, `compress_many`, `decompress` and
-`decompress_many` is the span tpz_torch.api.<entry> (utils/profiling.py),
-around the spans of its codec's stages."""
+decode for "gzip", "deflate", "zlib", "bzip2", "bgzf" (htslib's blocked
+gzip), the LZHUF methods "lh4"-"lh7" and raw "lzss", `formats()` and
+`register_format`, and the streaming shapes `CodecStream` (encode, with
+the crate's Action semantics) and `DecodeStream`. They run on the card
+(`device="cuda"`) unless the caller asks for the CPU (`device="cpu"`);
+"cuda" without a card raises. Raw LZSS runs on the host whatever the
+device, as in the reference. Each call of `compress`, `compress_many`,
+`decompress` and `decompress_many` is the span tpz_torch.api.<entry>
+(utils/profiling.py), around the spans of its codec's stages."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import struct
 from tpz_torch import constants as C
 from tpz_torch import oracle
 from tpz_torch.action import Action
-from tpz_torch.codecs import bzip2, deflate, gzip_codec, lzhuf, lzss
+from tpz_torch.codecs import bgzf, bzip2, deflate, gzip_codec, lzhuf, lzss
 from tpz_torch.codecs import zlib_codec
 from tpz_torch.errors import DataError, UnexpectedEof
 from tpz_torch.kernels.deflate_pipeline import _device
@@ -30,16 +30,18 @@ from tpz_torch.utils.profiling import span
 # without a batched entry is encoded and decoded a buffer at a time.
 _COMPRESS = {"gzip": gzip_codec.compress, "deflate": deflate.compress,
              "zlib": zlib_codec.compress, "bzip2": bzip2.compress,
-             "lzss": lzss.compress}
+             "bgzf": bgzf.compress, "lzss": lzss.compress}
 _COMPRESS_MANY = {"gzip": gzip_codec.compress_many,
                   "deflate": deflate.compress_many,
                   "zlib": zlib_codec.compress_many,
-                  "bzip2": bzip2.compress_many}
+                  "bzip2": bzip2.compress_many,
+                  "bgzf": bgzf.compress_many}
 _DECOMPRESS = {"gzip": gzip_codec.decompress, "deflate": deflate.decompress,
                "zlib": zlib_codec.decompress, "bzip2": bzip2.decompress,
-               "lzss": lzss.decompress}
+               "bgzf": bgzf.decompress, "lzss": lzss.decompress}
 _DECOMPRESS_MANY = {"gzip": gzip_codec.decompress_many,
-                    "bzip2": bzip2.decompress_many}
+                    "bzip2": bzip2.decompress_many,
+                    "bgzf": bgzf.decompress_many}
 for _m in sorted(C.LZHUF_METHODS):
     _COMPRESS[_m] = (lambda data, level, *, device, _m=_m:
                      lzhuf.compress(data, _m, device=device))
@@ -96,8 +98,10 @@ def decompress(data: bytes, format: str = "gzip", *, device="cuda") -> bytes:
 def decompress_many(datas, format: str = "gzip", *,
                     device="cuda") -> list[bytes]:
     """Batch decode: gzip puts every TZ-indexed member of every buffer in
-    one device batch, the LZHUF methods every buffer's segments and bzip2
-    every stream's blocks of one level bucket; other formats decode per
+    one device batch, bgzf (and gzip, for a buffer whose first member is
+    BGZF's) every member of every buffer in batches of up to 16 MiB of
+    output, the LZHUF methods every buffer's segments and bzip2 every
+    stream's blocks of one level bucket; other formats decode per
     buffer."""
     fn = _lookup(_DECOMPRESS, format)
     with span("api.decompress_many"):
@@ -130,7 +134,8 @@ class CodecStream:
     header goes out once and the trailer covers all the plaintext, so the
     output is one valid stream. A bzip2 flush emits an independent stream
     (a valid multi-stream concatenation). lzss and lh4-lh7 have no
-    concatenable form, and their flush raises DataError.
+    concatenable form, and their flush raises DataError, as does bgzf's:
+    its file ends with one EOF marker.
 
     finish() with no flush before it is `compress` on `device`; after a
     flush, the final segment is `deflate.compress` on `device`. On the card
@@ -261,10 +266,10 @@ class DecodeStream:
     [HIGH] SURVEY.md §2.1).
 
     write(b) feeds compressed bytes and returns the plaintext that became
-    decodable (a member at a time for gzip, a block for bzip2, as tokens
-    complete for deflate, zlib and lh4-lh7); finish() returns the rest and
-    raises UnexpectedEof if the stream is incomplete, DataError on
-    trailing garbage after a completed one-stream format.
+    decodable (a member at a time for gzip and bgzf, a block for bzip2, as
+    tokens complete for deflate, zlib and lh4-lh7); finish() returns the
+    rest and raises UnexpectedEof if the stream is incomplete, DataError
+    on trailing garbage after a completed one-stream format.
 
     It runs on the host, as the reference's does, and takes no device:
     the DEFLATE family through the C++ resumable InflateStream with
@@ -279,10 +284,12 @@ class DecodeStream:
     def __init__(self, format: str = "gzip") -> None:
         if format not in _DECOMPRESS:
             raise ValueError(f"unknown format {format!r}")
-        self._format = format
+        # A BGZF file is a gzip stream of many members: the gzip pump
+        # reads it, every member's CRC-32 and ISIZE checked.
+        self._format = "gzip" if format == "bgzf" else format
         self._buf = bytearray()  # header or trailer bytes, or the input
         self._finished = False
-        if format in _DEFLATE_FAMILY:
+        if self._format in _DEFLATE_FAMILY:
             self._state = "body" if format == "deflate" else "header"
             self._inf: _MemberInflate | None = None
             self._plain = bytearray()  # the current member, not yet out

@@ -1,12 +1,14 @@
 """gzip container (RFC 1952): header + DEFLATE + CRC-32/ISIZE trailer
 (port of tpz/codecs/gzip_codec.py). The CRC is stdlib zlib's.
 
-Decode handles FEXTRA/FNAME/FCOMMENT/FHCRC and multi-member streams. A
-member whose 'TZ' side-car passes the bounds checks takes the indexed
-route; any other member takes the segmented route
-(kernels/inflate_pipeline.py). The trailer checks after a decode are the
-stage "crc" (the span tpz_torch.gzip.crc); an encode's header, CRC-32,
-ISIZE and their join with the body are the span gzip.frame.
+Decode handles FEXTRA/FNAME/FCOMMENT/FHCRC and multi-member streams. In
+a batched decode a buffer whose first member carries BGZF's 'BC'
+subfield goes to the BGZF reader (codecs/bgzf.py). A member whose 'TZ'
+side-car passes the bounds checks takes the indexed route; any other
+member takes the segmented route (kernels/inflate_pipeline.py). The
+trailer checks after a decode are the stage "crc" (the span
+tpz_torch.gzip.crc); an encode's header, CRC-32, ISIZE and their join
+with the body are the span gzip.frame.
 """
 
 from __future__ import annotations
@@ -33,11 +35,16 @@ _TZ_ID = b"TZ"
 _TZ_MAX_BLOCKS = (65535 - 8) // 8
 
 
+def xfl(level: int) -> int:
+    """The header's XFL for `level`: 2 for the slowest levels, 4 for the
+    fastest."""
+    return 2 if level >= 7 else (4 if level <= 1 else 0)
+
+
 def header_bytes(level: int = 6, mtime: int = 0, extra: bytes = b"") -> bytes:
-    xfl = 2 if level >= 7 else (4 if level <= 1 else 0)
     flg = _FEXTRA if extra else 0
     hdr = C.GZIP_MAGIC + bytes([C.GZIP_CM_DEFLATE, flg]) + struct.pack(
-        "<I", mtime) + bytes([xfl, C.GZIP_OS_UNIX])
+        "<I", mtime) + bytes([xfl(level), C.GZIP_OS_UNIX])
     if extra:
         hdr += struct.pack("<H", len(extra)) + extra
     return hdr
@@ -196,14 +203,25 @@ def decompress(data: bytes, *, device="cuda", stage_hook=_nohook) -> bytes:
 
 
 def decompress_many(datas, *, device="cuda", stage_hook=_nohook) -> list[bytes]:
-    """Batched gzip decode: every TZ-indexed member of every buffer shares
-    one indexed batch; the other buffers decode one by one. stage_hook
-    sees each decode's stages (kernels/inflate_pipeline.py), then "crc"
-    after its trailer checks."""
+    """Batched gzip decode: the buffers whose first member is BGZF's go
+    to its reader (codecs/bgzf.py), which decodes all their members in
+    one batched call; every TZ-indexed member of the other buffers shares
+    one indexed batch; the rest decode one by one. stage_hook sees each
+    decode's stages (kernels/inflate_pipeline.py), then "crc" after its
+    trailer checks."""
+    from tpz_torch.codecs import bgzf  # bgzf imports this module
+
     device = _device(device)
     datas = list(datas)
     results = [None] * len(datas)
-    scans = [_scan_members_indexed(d) for d in datas]
+    marked = [i for i, d in enumerate(datas) if bgzf.is_bgzf(d)]
+    if marked:
+        for i, out in zip(marked, bgzf.decompress_many(
+                [datas[i] for i in marked], device=device,
+                stage_hook=stage_hook)):
+            results[i] = out
+    scans = [_scan_members_indexed(d) if results[i] is None else None
+             for i, d in enumerate(datas)]
     items = [it for s in scans if s is not None for it in s[0]]
     if items:
         plains = ip.decompress_many_indexed(items, device,

@@ -726,11 +726,25 @@ def index_stream(stream: bytes, seg_out: int = BLOCK):
     smaller segments give the walk more, shorter chains. An empty stream
     gives an index with no segments, which decodes to b""."""
     with span("inflate.index"):
-        idx = oracle.inflate_index(stream, seg_out=seg_out,
-                                   max_span_bytes=SLICE_BYTES - 1024)
+        return _index(stream, seg_out)
+
+
+def _index(stream: bytes, seg_out: int = BLOCK):
+    idx = oracle.inflate_index(stream, seg_out=seg_out,
+                               max_span_bytes=SLICE_BYTES - 1024)
     if idx is None or int(np.sum(idx["out_lens"])) > MAX_DECODE_SPAN_WIDE:
         return None
     return idx
+
+
+def index_streams(streams, run) -> list:
+    """index_stream of each of many streams, as one span inflate.index.
+    `run(fn, streams)` maps the index over them: a map that runs it in
+    threads indexes them in parallel (the oracle's walk releases the
+    interpreter lock)."""
+    oracle.lib()  # loaded once, before any thread calls it
+    with span("inflate.index"):
+        return list(run(_index, streams))
 
 
 def decompress_segmented(stream: bytes, idx: dict, device, **kw) -> bytes:
@@ -738,17 +752,35 @@ def decompress_segmented(stream: bytes, idx: dict, device, **kw) -> bytes:
     return decompress_many_segmented([(stream, idx)], device, **kw)[0]
 
 
+def _join(items):
+    """One (stream, index) for streams that share a batch: the streams
+    laid end to end, each from a byte boundary, and their segments' bit
+    offsets moved by where their stream starts. The index refuses a
+    match that reaches before its stream's start, so the joined segments
+    decode to the streams' outputs end to end."""
+    if len(items) == 1:
+        return items[0]
+    bits = 8 * np.cumsum([0] + [len(s) for s, _ in items[:-1]])
+    idx = {k: np.concatenate([x[k] + b for (_, x), b in zip(items, bits)])
+           for k in ("hdr_bits", "seg_bits", "end_bits")}
+    idx.update({k: np.concatenate([x[k] for _, x in items])
+                for k in ("out_lens", "carry_len", "carry_dist")})
+    return b"".join(s for s, _ in items), idx
+
+
 def decompress_many_segmented(items, device, *, stage_hook=_nohook,
                               _wide=False):
     """Batch-decode host-indexed streams (index_stream) in one device
-    batch. items: (stream bytes, index dict)."""
+    batch. items: (stream bytes, index dict). The batch's streams are
+    scanned and laid out as one (_join)."""
     device = _device(device)
     results = [None] * len(items)
     idxs = []
+    n_out = [int(idx["out_lens"].sum()) for _, idx in items]
     for i, (_, idx) in enumerate(items):
         if len(idx["out_lens"]) == 0:
             results[i] = b""
-        elif int(np.max(idx["out_lens"])) > BLOCK:
+        elif int(idx["out_lens"].max()) > BLOCK:
             # The [NB, BLOCK] marker space holds at most BLOCK bytes per
             # segment.
             raise errors.DataError("segment out_len exceeds BLOCK")
@@ -761,34 +793,34 @@ def decompress_many_segmented(items, device, *, stage_hook=_nohook,
         return decompress_many_segmented(sub, device, stage_hook=stage_hook,
                                          _wide=wide)
 
-    if _grouped(items, idxs, lambda i: int(np.sum(items[i][1]["out_lens"])),
-                decode, results, _wide):
+    if _grouped(items, idxs, n_out.__getitem__, decode, results, _wide):
         return results
 
     with span("inflate.scan"):
-        scans, kept = {}, []
-        for i in idxs:
-            stream, idx = items[i]
+        while idxs:
+            stream, idx = _join([items[i] for i in idxs])
             scan = oracle.inflate_scan_segments(
                 stream, idx["hdr_bits"], idx["seg_bits"], idx["end_bits"])
-            if (scan["lit_bits"] < 0).any():
-                results[i] = _host_inflate(stream)[0]
-                continue
-            scans[i] = scan
-            kept.append(i)
-    if not kept:
+            owner = np.repeat(np.arange(len(idxs)),
+                              [len(items[i][1]["out_lens"]) for i in idxs])
+            bad = set(owner[scan["lit_bits"] < 0].tolist())
+            if not bad:
+                break
+            for k in bad:
+                results[idxs[k]] = _host_inflate(items[idxs[k]][0])[0]
+            idxs = [i for k, i in enumerate(idxs) if k not in bad]
+    if not idxs:
         return results
     with span("inflate.batch"):
         with stage("inflate", "scan", stage_hook):
-            layout = _segmented_layout(items, kept, scans)
+            layout = _segmented_layout([(stream, idx)], [0], {0: scan})
         with stage("inflate", "h2d", stage_hook):
             t = _to_device(layout, device)
         out = _decode_segmented_fn(t, stage_hook)
         with stage("inflate", "fetch", stage_hook):
             flat = out.cpu().numpy()
             pos = 0
-            for i in kept:
-                n_out = int(np.sum(items[i][1]["out_lens"]))
-                results[i] = flat[pos:pos + n_out].tobytes()
-                pos += n_out
+            for i in idxs:
+                results[i] = flat[pos:pos + n_out[i]].tobytes()
+                pos += n_out[i]
     return results

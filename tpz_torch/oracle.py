@@ -137,9 +137,13 @@ def lib() -> ctypes.CDLL:
             u8p, ctypes.c_size_t, i64p, i64p, i64p, ctypes.c_int32, i32p,
             i64p, i32p, i32p, i32p, i32p, i32p, i32p, u32p, u32p]
         L.tpz_inflate_index.restype = ctypes.c_int
+        # Buffers by address: inflate_index runs once a member of a BGZF
+        # file, where building a ctypes pointer an argument costs more
+        # than the walk of a small stream.
+        vp = ctypes.c_void_p
         L.tpz_inflate_index.argtypes = [
-            u8p, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, i64p, i64p, i64p, i64p, i32p, i32p, i64p, szp]
+            vp, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, vp, vp, vp, vp, vp, vp, vp, szp]
         u16p = ctypes.POINTER(ctypes.c_uint16)
         L.tpz_lzhuf_encode.restype = ctypes.c_int
         L.tpz_lzhuf_encode.argtypes = [
@@ -366,22 +370,25 @@ def inflate_index(stream, seg_out: int = 1 << 16,
     per-segment arrays (hdr_bits, seg_bits, end_bits, out_lens, carry_len,
     carry_dist) and `consumed` bytes, or None when the stream does not fit
     the device path."""
-    a = _u8(stream)
-    max_segs = max(16, 2 * (a.size // 1024) + 64 * 1024)
-    i64 = {k: np.zeros(max_segs, np.int64)
-           for k in ("hdr_bits", "seg_bits", "end_bits", "out_lens")}
-    i32 = {k: np.zeros(max_segs, np.int32) for k in ("carry_len", "carry_dist")}
-    nseg = np.zeros(1, np.int64)
+    data = bytes(stream)
+    max_segs = max(16, 2 * (len(data) // 1024) + 64 * 1024)
+    # Rows hdr_bits, seg_bits, end_bits, out_lens and, in row 4's first
+    # entry, the segment count; then carry_len, carry_dist.
+    w64 = np.empty((5, max_segs), np.int64)
+    w32 = np.empty((2, max_segs), np.int32)
+    a64, a32 = w64.ctypes.data, w32.ctypes.data
+    r64, r32 = 8 * max_segs, 4 * max_segs
     consumed = ctypes.c_size_t(0)
     st = lib().tpz_inflate_index(
-        _ptr(a, ctypes.c_uint8), a.size, seg_out, max_segs, max_span_bytes,
-        *[_ptr(v, ctypes.c_int64) for v in i64.values()],
-        *[_ptr(v, ctypes.c_int32) for v in i32.values()],
-        _ptr(nseg, ctypes.c_int64), ctypes.byref(consumed))
+        data, len(data), seg_out, max_segs, max_span_bytes, a64, a64 + r64,
+        a64 + 2 * r64, a64 + 3 * r64, a32, a32 + r32, a64 + 4 * r64,
+        ctypes.byref(consumed))
     if st != 0:
         return None
-    k = int(nseg[0])
-    idx = {name: v[:k] for name, v in {**i64, **i32}.items()}
+    k = int(w64[4, 0])
+    idx = dict(zip(("hdr_bits", "seg_bits", "end_bits", "out_lens"),
+                   w64[:4, :k].copy()))
+    idx.update(zip(("carry_len", "carry_dist"), w32[:, :k].copy()))
     idx["consumed"] = int(consumed.value)
     return idx
 
