@@ -87,15 +87,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
               entry offset past a guess; lzhuf_lanes.py times more), and
               with one phase walk a lane (SPEC_PHASES = 1), which sends
               most lane boundaries the slow route (the phase fails
-              unless it does); every one exact
+              unless it does); every one exact. Its last line
+              (lzhuf-pack-kernel): the LZHUF bit packer's kernel
+              (lzhuf_pipeline.pack_words) against the plain packer
+              (pack_words_plain) on the inputs one headline lh5 encode's
+              plan stage makes: every word equal, one launch a call; the
+              wrapper (mean of 5), the launch alone on the same words
+              (mean of 5; it leaves them as they are) and the plain packer
+              (one call) timed, the launch beside its bound (its inputs
+              read once, the words written once, at 3.35 TB/s)
  10. lzhuf-slice
               api.compress_many on the headline batch at lh5, one 16 MiB
               buffer of it at lh7 and 1 MiB at lh4 and lh6, device "cuda":
               every body equals the oracle's lzhuf encode (max_chain 16);
               then api.decompress_many of each gives the input back. Each
               call runs with the launch counts set to 0 just before it and
-              read just after: the v1 parse walk on encode, the token walk
-              and the copy machine on decode; nothing declines to the host.
+              read just after: the v1 parse walk and the LZHUF pack on
+              encode (the pack once a call), the token walk and the copy
+              machine on decode; nothing declines to the host.
               Corrupt lh5 streams decode on the card as on device "cpu":
               one raises the same error, one gives the same bytes
  11. lzhuf-profile
@@ -243,7 +252,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
               barrier, rank 0 assembles) gives the one-process bytes
 The last phase line gives the script's seconds so far. A JSON record of
 the kernels (launches from each one's main-path calls:
-gzip encode and sharded_compress (#1, the screen and the pack), gzip decode, lh5 encode, lh5 decode,
+gzip encode and sharded_compress (#1, the screen and the pack), gzip decode, lh5 encode (#4 and
+the LZHUF pack), lh5 decode,
 bzip2 decode, the public functions of #8 (and sharded_encode_step) and
 #9, bzip2 encode and sharded_compress_bzip2, checksums.crc32; times and
 bounds at the headline shapes) comes before the card's name and power
@@ -1311,11 +1321,68 @@ def phase_lzhuf_kernels(small, headline):
              **walk_bound})
 
 
+def lzhuf_pack_bound(tok, ml, md, table, plan, words) -> dict:
+    """The LZHUF pack's bound: is_token, mlen, mdist, the rows' bytes (one
+    a position; the halo around them is not read), the joint table, the
+    header slots and the row offsets read once; the words written once."""
+    tensors = [tok, ml, md, table, plan.head_vals, plan.head_bits,
+               plan.head_off, plan.body_off, words]
+    return bound_bytes_ops(tok.numel() + sum(t.numel() * t.element_size()
+                                             for t in tensors), 0)
+
+
+def phase_lzhuf_pack_kernel(headline):
+    """Phase 9's last line: the LZHUF bit packer's kernel against the
+    plain packer at the headline layout, lh5, on the inputs one headline
+    lh5 encode's plan stage makes (caught from one encode call); the
+    wrapper, the launch alone and the plain packer timed, the launch
+    beside its bound."""
+    from tpz_torch.kernels import lzhuf_pipeline as lp
+
+    pack, launch = lp.pack_words, lp._pack_launch
+    seen = []
+    lp._pack_launch = lambda *a: seen.append(a) or launch(*a)
+    try:
+        lp.compress_many(headline, LZHUF_METHOD, "cuda")
+    finally:
+        lp._pack_launch = launch
+    (blocks, window, tok, ml, md, table, plan, words), = seen
+    args = (blocks, window, tok, ml, md, plan, words.numel())
+    before = pack.launches
+    got, cold_ms = timed(lambda: pack(*args))
+    if pack.launches != before + 1:
+        raise RuntimeError(f"LZHUF pack wrapper launched "
+                           f"{pack.launches - before} times")
+    want, plain_ms = timed(lambda: lp.pack_words_plain(*args))
+    differ = int((got != want).sum())
+    if differ:
+        raise RuntimeError(f"LZHUF pack kernel disagrees with plain: {differ} "
+                           f"of {want.numel()} words")
+    del want
+    _, ms = timed(lambda: pack(*args), 5)
+    # The launch alone, again and again on the same words: each launch
+    # stores or ORs the same bits, so the words stay as they were.
+    words = got.clone()
+    _, launch_ms = timed(lambda: launch(blocks, window, tok, ml, md, table,
+                                        plan, words), 5)
+    if not torch.equal(words, got):
+        raise RuntimeError("LZHUF pack launches alone disagree with the "
+                           "wrapper")
+    b = lzhuf_pack_bound(tok, ml, md, table, plan, got)
+    log("lzhuf-pack-kernel", method=LZHUF_METHOD, blocks=tok.shape[0],
+        header_slots=plan.head_vals.shape[1], words=got.numel(),
+        words_differ=0, wrapper_ms=f"{ms:.3f}",
+        first_call_ms=f"{cold_ms:.3f}", launch_ms=f"{launch_ms:.3f}",
+        plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b['bound_ms']:.4f}")
+    return {"max_abs_err": 0, "ms": launch_ms, "plain_ms": plain_ms, **b}
+
+
 def phase_lzhuf_slice(batch, small):
     """LZHUF encode and decode through the api on the card, against the
     oracle's bytes and the inputs. Returns the lh5 batch's blobs and its
     encode and decode counts."""
     from tpz_torch import api, oracle
+    from tpz_torch.kernels import lzhuf_pipeline as lp
     from tpz_torch.kernels import lzhuf_walk as lw
     from tpz_torch.kernels import parse
     from tpz_torch.kernels import resolve_walk as rw
@@ -1327,19 +1394,24 @@ def phase_lzhuf_slice(batch, small):
         out, dt, c = drive("lzhuf-slice", f"encode-{method}",
                            lambda: api.compress_many(datas, method,
                                                      device="cuda"),
-                           {"parse_v1": parse.parse_extend_v1})
+                           {"parse_v1": parse.parse_extend_v1,
+                            "pack": lp.pack_words})
         bits = _dict_bits(method)
         for i, (d, blob) in enumerate(zip(datas, out)):
             if blob[15:] != oracle.lzhuf_encode(d, bits, 16):
                 raise RuntimeError(f"{method} buffer {i}: body differs from "
                                    "the oracle's")
+        # Each case is one group (at most MAX_DEVICE_SPAN bytes).
+        if c["pack"] != 1:
+            raise RuntimeError(f"encode-{method}: the pack kernel launched "
+                               f"{c['pack']} times (want 1)")
         blobs[method] = out
         counts[method] = c
         log("lzhuf-slice", path=f"encode-{method}", buffers=len(datas),
             bytes=sum(len(d) for d in datas),
             ratio=f"{sum(map(len, out)) / sum(map(len, datas)):.4f}",
             cold_s=f"{dt:.3f}", parse_v1_launches=c["parse_v1"],
-            oracle_identical=True)
+            pack_launches=c["pack"], oracle_identical=True)
     for method, datas in cases.items():
         declines = lw.host_declines
         got, dt, c = drive("lzhuf-slice", f"decode-{method}",
@@ -1470,13 +1542,15 @@ def profile_call(fn, label: str, counters: dict,
 
 def phase_lzhuf_profile(batch, blobs) -> None:
     from tpz_torch import api
+    from tpz_torch.kernels import lzhuf_pipeline as lp
     from tpz_torch.kernels import lzhuf_walk as lw
     from tpz_torch.kernels import parse
     from tpz_torch.kernels import resolve_walk as rw
 
     profile_call(lambda: api.compress_many(batch, LZHUF_METHOD,
                                            device="cuda"),
-                 f"{LZHUF_METHOD}-encode", {"parse_v1": parse.parse_extend_v1})
+                 f"{LZHUF_METHOD}-encode", {"parse_v1": parse.parse_extend_v1,
+                                            "pack": lp.pack_words})
     profile_call(lambda: api.decompress_many(blobs, LZHUF_METHOD,
                                              device="cuda"),
                  f"{LZHUF_METHOD}-decode",
@@ -2805,6 +2879,7 @@ def main() -> int:
                                          blobs[0][hdr_len:-8])
     dec = phase_decode_slice(batches[0], blobs)
     parse_v1, lz_walk = phase_lzhuf_kernels(small["mixed"], batches[0])
+    lz_pack = phase_lzhuf_pack_kernel(batches[0])
     lz_blobs, lz = phase_lzhuf_slice(batches[0], small["mixed"])
     phase_lzhuf_profile(batches[0], lz_blobs)
     lz_blob = lz_blobs[0]
@@ -2845,10 +2920,11 @@ def main() -> int:
     phase_distributed(data64, smi)
     log("total", script_s=f"{time.perf_counter() - start:.1f}")
     # Each kernel's launches come from its own main-path calls: gzip encode
-    # and sharded_compress (#1), gzip decode (#2, #3), lh5 encode (#4), lh5
-    # decode (#5), bzip2 decode (#6, #7), the public function greedy_parse
-    # and sharded_encode_step (#8), parse_extend_v3w (#9), bzip2 encode
-    # and sharded_compress_bzip2 on make_mesh(4) (the MTF encode), and
+    # and sharded_compress (#1, the screen, the DEFLATE pack), gzip decode
+    # (#2, #3), lh5 encode (#4, the LZHUF pack), lh5 decode (#5), bzip2
+    # decode (#6, #7), the public function greedy_parse and
+    # sharded_encode_step (#8), parse_extend_v3w (#9), bzip2 encode and
+    # sharded_compress_bzip2 on make_mesh(4) (the MTF encode), and
     # checksums.crc32 on the card (the CRC lanes).
     rows = [("parse_walk_v3", "parse_walk.cu", "tpz/kernels/parse.py:464",
              launches["parse"] + sharded["parse"], kern),
@@ -2877,7 +2953,11 @@ def main() -> int:
              launches["screen"] + sharded["screen"], screen),
             ("deflate_pack", "deflate_pack.cu",
              "none (XLA stage tpz/kernels/bitpack.py::assemble_stream_v2)",
-             launches["pack"] + sharded["pack"], pack)]
+             launches["pack"] + sharded["pack"], pack),
+            ("lzhuf_pack", "lzhuf_pack.cu",
+             "none (XLA stage tpz/kernels/lzhuf_pipeline.py::_stage2 with "
+             "tpz/kernels/bitpack.py::assemble_stream_msb)", lz["pack"],
+             lz_pack)]
     # None of these functions has one PyTorch call that computes it (torch
     # has no CRC).
     print(json.dumps({"kernels": [{

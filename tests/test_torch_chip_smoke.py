@@ -39,3 +39,30 @@ def test_a_card_without_peaks_gets_no_bound(card):
     card("NVIDIA A100-SXM4-80GB")
     with pytest.raises(RuntimeError, match="no memory rate"):
         chip_smoke.bound_bytes_ops(1, 1)
+
+
+def test_lzhuf_pack_bound_counts_each_byte_once(card):
+    """The LZHUF pack's bound at the lh5.archive cell's shape: a byte, a
+    flag and two int32 a position, the joint table, the header slots
+    (1,058 at lh5) and the row offsets read once; the words written
+    once."""
+    from tpz_torch.kernels.lzhuf_plan_device import Plan
+
+    card("NVIDIA H100 80GB HBM3")
+    nb, b, s, words = 1024, 32768, 1058, 3_000_000
+
+    tok = torch.empty((nb, b), dtype=torch.bool)
+    ml = torch.empty((nb, b), dtype=torch.int32)
+    md = torch.empty((nb, b), dtype=torch.int32)
+    table = torch.empty((nb, 530), dtype=torch.int32)
+    plan = Plan(*(None,) * 4, torch.empty((nb, s), dtype=torch.int64),
+                torch.empty((nb, s), dtype=torch.int32),
+                torch.empty(nb, dtype=torch.int64),
+                torch.empty(nb, dtype=torch.int64), None, None)
+    out = torch.empty(words, dtype=torch.int32)
+    got = chip_smoke.lzhuf_pack_bound(tok, ml, md, table, plan, out)
+    nbytes = (nb * b * (1 + 1 + 4 + 4) + nb * 530 * 4 + nb * s * (8 + 4)
+              + nb * 16 + words * 4)
+    assert got == {"bound_ms": pytest.approx(nbytes / 3.35e12 * 1e3),
+                   "bound_by": "bytes"}
+    assert 0.10 < got["bound_ms"] < 0.12

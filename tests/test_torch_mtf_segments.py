@@ -26,7 +26,8 @@ from tpz.kernels import bzip2_walk as jbw
 from tpz.kernels import mtf as jmtf
 from tpz_torch.kernels import _build, bitpack, bzip2_walk as bw, checksums
 from tpz_torch.kernels import ibwt_walk
-from tpz_torch.kernels import inflate_pipeline, lzhuf_walk, matchfinder, mtf
+from tpz_torch.kernels import inflate_pipeline, lzhuf_pipeline, lzhuf_walk
+from tpz_torch.kernels import matchfinder, mtf
 from tpz_torch.kernels import parse, resolve_walk
 
 
@@ -209,7 +210,8 @@ def test_each_wrappers_kernels_are_kernels_of_its_sources():
                 resolve_walk.resolve_copy_machine, parse.parse_extend_v3,
                 parse.parse_extend_v1, parse.parse_extend_v3w,
                 parse.reach_walk, checksums.crc32_lanes,
-                matchfinder.suffix_screen, bitpack.pack_deflate)
+                matchfinder.suffix_screen, bitpack.pack_deflate,
+                lzhuf_pipeline.pack_words)
     listed = [k for w in wrappers for k in w.kernels]
     assert sorted(listed) == sorted(declared)
     assert any(h.endswith("mtf_list.cuh") for h in headers)

@@ -110,6 +110,8 @@ def lib() -> ctypes.CDLL:
         ll = ctypes.c_longlong
         L.tpz_deflate_pack.restype = ci
         L.tpz_deflate_pack.argtypes = [vp] * 13 + [ci] * 3 + [ll, vp]
+        L.tpz_lzhuf_pack.restype = ci
+        L.tpz_lzhuf_pack.argtypes = [vp] * 10 + [ci] * 5 + [ll, vp]
         L.tpz_crc32_lanes.restype = ci
         L.tpz_crc32_lanes.argtypes = [vp, ll, ci, ci, vp, vp, vp, ll, vp, vp,
                                       ci, vp]

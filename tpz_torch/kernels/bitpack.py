@@ -219,7 +219,9 @@ def assemble_stream_msb(vals, nbits, body_off, total_words: int):
     bit offsets. Returns [total_words] int64 u32 words. The reference's
     cumsum-and-sort word assembly only spared the TPU's per-update scatter
     cost; a slot lands in at most two words with disjoint bit ranges, so
-    an `index_add_` of both halves assembles them exactly (add == or)."""
+    an `index_add_` of both halves assembles them exactly (add == or). On
+    a card only the bzip2 path calls it now: the LZHUF encode packs with
+    lzhuf_pipeline.pack_words (csrc/lzhuf_pack.cu)."""
     n = nbits.to(torch.int64)
     off = (body_off.to(torch.int64)[:, None] + torch.cumsum(n, dim=1) - n)
     v = vals.to(torch.int64) & U32

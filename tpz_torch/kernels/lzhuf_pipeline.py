@@ -11,8 +11,10 @@ receives):
   plan     kernels/lzhuf_plan_device.py on the device, all of the group's
            blocks at once: code lengths, canonical codes, block header
            slots, bit offsets; one copy of the buffers' bit totals
-  pack     c and p codes with the raw distance bits, and the header
-           slots, MSB-first bitpack into one set of words
+  pack     the header slots, then the c and p codes with the raw
+           distance bits, MSB-first into one set of words: on a card one
+           launch of csrc/lzhuf_pack.cu packs a group's headers and bodies
+           (pack_words)
   fetch    device-to-host copy of the packed words
   merge    (host) each buffer's stream cut from its word-aligned region
 Each buffer is its own stream, and all buffers' blocks share one batch.
@@ -31,12 +33,14 @@ from tpz_torch.kernels.bitpack import assemble_stream_msb
 from tpz_torch.kernels.deflate_pipeline import _device, _hist
 from tpz_torch.kernels.matchfinder import screen_candidates
 from tpz_torch.kernels.parse import parse_extend_v1
+from tpz_torch.utils.bits import to_i32
 from tpz_torch.utils.profiling import _nohook, stage
 
 BLOCK = 32768
 FWD = 512
 MAX_MATCH = C.LZHUF_MAX_MATCH
 NC = C.LZHUF_NC
+P_COLS = lzhuf_plan_device.P_COLS
 MAX_CHAIN = 16
 # Largest batch one invocation encodes; bigger batches split into groups
 # of whole buffers (each buffer is its own stream).
@@ -131,6 +135,108 @@ def _stage2(data_block, is_token, mlen, mdist, c_len, c_code, p_len, p_code,
     return assemble_stream_msb(vals, nbits, body_off, total_words)
 
 
+def pack_words_plain(blocks, window: int, is_token, mlen, mdist,
+                     plan: lzhuf_plan_device.Plan,
+                     total_words: int) -> torch.Tensor:
+    """The group's words as int32 [total_words], in plain torch on any
+    device: _stage2's body words with the header slots' words (from
+    plan.head_off) ORed in. blocks [NB, M] uint8 holds each row's
+    positions at [window, window + BLOCK)."""
+    words = _stage2(blocks[:, window:window + BLOCK].to(torch.int32),
+                    is_token, mlen, mdist, plan.c_len, plan.c_code,
+                    plan.p_len, plan.p_code, plan.body_off, total_words)
+    # Header and body bits are disjoint: or is add.
+    words |= assemble_stream_msb(plan.head_vals, plan.head_bits,
+                                 plan.head_off, total_words)
+    return to_i32(words)
+
+
+def pack_words(blocks, window: int, is_token, mlen, mdist,
+               plan: lzhuf_plan_device.Plan, total_words: int) -> torch.Tensor:
+    """pack_words_plain's words (the same arguments): the plain version
+    for CPU tensors; for CUDA tensors one launch of csrc/lzhuf_pack.cu,
+    one CUDA block a row, into zeroed words. Raises for another device,
+    dtype, shape or stride, or rows of another width than BLOCK."""
+    dev = blocks.device
+    if dev.type == "cpu":
+        return pack_words_plain(blocks, window, is_token, mlen, mdist, plan,
+                                total_words)
+    NB, B = is_token.shape if is_token.dim() == 2 else (-1, -1)
+    if B != BLOCK:
+        raise ValueError(f"LZHUF pack: rows of {B} positions; the kernel "
+                         f"takes {BLOCK}")
+    M = blocks.shape[1] if blocks.dim() == 2 else -1
+    if window < 0 or M < window + B:
+        raise ValueError(f"LZHUF pack: blocks rows of {M} bytes hold no "
+                         f"{B} positions from window {window}")
+    S = plan.head_vals.shape[1] if plan.head_vals.dim() == 2 else -1
+    i32, i64 = torch.int32, torch.int64
+    for name, t, dtype, shape in (
+            ("blocks", blocks, torch.uint8, (NB, M)),
+            ("is_token", is_token, torch.bool, (NB, B)),
+            ("mlen", mlen, i32, (NB, B)), ("mdist", mdist, i32, (NB, B)),
+            ("head_vals", plan.head_vals, i64, (NB, S)),
+            ("head_bits", plan.head_bits, i32, (NB, S)),
+            ("head_off", plan.head_off, i64, (NB,)),
+            ("body_off", plan.body_off, i64, (NB,))):
+        if (t.device != dev or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"LZHUF pack: {name} must be a contiguous {dtype} tensor "
+                f"of shape {shape} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    # The tables may be strided (the plan's p tables are slices of a wider
+    # table): joint_table copies them.
+    for name, t, cols in (("c_len", plan.c_len, NC),
+                          ("c_code", plan.c_code, NC),
+                          ("p_len", plan.p_len, P_COLS),
+                          ("p_code", plan.p_code, P_COLS)):
+        if t.device != dev or t.dtype != i32 or tuple(t.shape) != (NB, cols):
+            raise ValueError(
+                f"LZHUF pack: {name} must be a {i32} tensor of shape "
+                f"{(NB, cols)} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"LZHUF pack: unsupported device {dev}")
+    out = torch.zeros(total_words, dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        _pack_launch(blocks, window, is_token, mlen, mdist, joint_table(plan),
+                     plan, out)
+    pack_words.launches += 1
+    return out
+
+
+pack_words.launches = 0
+pack_words.kernels = ("lzhuf_pack",)
+
+
+def joint_table(plan: lzhuf_plan_device.Plan) -> torch.Tensor:
+    """The plan's C and P tables as the kernel reads them: [NB, NC +
+    P_COLS] int32, code | len << 16 (codes are at most 16 bits)."""
+    return torch.cat([plan.c_code | (plan.c_len << 16),
+                      plan.p_code | (plan.p_len << 16)], dim=1)
+
+
+def _pack_launch(blocks, window, is_token, mlen, mdist, table, plan,
+                 out) -> None:
+    """One launch of the kernel on the tensors pack_words checked and
+    their joint_table, into `out`. It ORs or stores each word's bits, so a
+    second launch on the same `out` leaves it as it was."""
+    from tpz_torch.kernels import _build
+
+    NB, M = blocks.shape
+    rc = _build.lib().tpz_lzhuf_pack(
+        blocks.data_ptr(), is_token.data_ptr(), mlen.data_ptr(),
+        mdist.data_ptr(), table.data_ptr(), plan.head_vals.data_ptr(),
+        plan.head_bits.data_ptr(), plan.head_off.data_ptr(),
+        plan.body_off.data_ptr(), out.data_ptr(), NB, M, window,
+        is_token.shape[1], plan.head_vals.shape[1], out.shape[0],
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"LZHUF pack kernel launch failed: cudaError "
+                           f"{rc}")
+
+
 def compress(data: bytes, method: str = "lh5", device="cuda") -> bytes:
     return compress_many([data], method, device)[0]
 
@@ -185,14 +291,10 @@ def _encode_group(datas, np_, window, device, stage_hook) -> list[bytes]:
                            // 32))
 
     with stage("lzhuf", "pack", stage_hook):
-        words = _stage2(blocks[:, window:window + BLOCK].to(torch.int32),
-                        is_token, mlen, mdist, plan.c_len, plan.c_code,
-                        plan.p_len, plan.p_code, plan.body_off, total_words)
-        # Header and body bits are disjoint: add is or.
-        words += assemble_stream_msb(plan.head_vals, plan.head_bits,
-                                     plan.head_off, total_words)
+        words = pack_words(blocks, window, is_token, mlen, mdist, plan,
+                           total_words)
     with stage("lzhuf", "fetch", stage_hook):
-        body = words.cpu().numpy().astype(">u4").view(np.uint8)  # MSB first
+        body = words.cpu().numpy().byteswap().view(np.uint8)  # MSB first
     with stage("lzhuf", "merge", stage_hook):
         return [body[rb // 8:rb // 8 + (tb + 7) // 8].tobytes()
                 for rb, tb in zip(plan.region_bits, plan.total_bits)]

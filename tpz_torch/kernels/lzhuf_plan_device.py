@@ -27,7 +27,7 @@ or buffers.
     raw distance bits)); a segmented cumsum places each block's header
     and body in its buffer's stream, and each buffer's stream starts at a
     word-aligned region of the group's output.
-bitpack.assemble_stream_msb packs the header slots as it packs the body.
+lzhuf_pipeline.pack_words packs the header slots with the body.
 """
 
 from __future__ import annotations
