@@ -97,12 +97,16 @@ def decompress(data: bytes, format: str = "gzip", *, device="cuda") -> bytes:
 
 def decompress_many(datas, format: str = "gzip", *,
                     device="cuda") -> list[bytes]:
-    """Batch decode: gzip puts every TZ-indexed member of every buffer in
-    one device batch, bgzf (and gzip, for a buffer whose first member is
-    BGZF's) every member of every buffer in batches of up to 16 MiB of
-    output, the LZHUF methods every buffer's segments and bzip2 every
-    stream's blocks of one level bucket; other formats decode per
-    buffer."""
+    """Batch decode: gzip puts every member of the buffers whose members
+    all carry the TZ index in one device batch, and every member of every
+    other buffer (stock gzip of one member or many, such as WARC files
+    compressed record at a time) in one batched segmented decode after a
+    host walk that finds where each member ends; bgzf (and gzip, for a
+    buffer whose first member is BGZF's) decodes every member of every
+    buffer so too, its members found from BSIZE. Those batched decodes
+    split into device batches of up to 16 MiB of output. The LZHUF
+    methods batch every buffer's segments and bzip2 every stream's
+    blocks of one level bucket; other formats decode per buffer."""
     fn = _lookup(_DECOMPRESS, format)
     with span("api.decompress_many"):
         if format in _DECOMPRESS_MANY:

@@ -48,12 +48,6 @@ _OS_UNKNOWN = 255
 EOF_MARKER = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000")
 
-# Host threads of the members' index and CRCs. On an H100's host of 8
-# cores that other work shares, 4 threads read a request as fast as 8
-# and ~1.2x as fast as 2, but their rate swung twice as far from run to
-# run as 2 threads' did.
-THREADS = 2
-
 # Buffers decoded by gzip_codec.decompress because a member failed the
 # split, and members that the batched path decoded.
 declines = 0
@@ -172,52 +166,27 @@ def _host_member(body: bytes) -> bytes:
     return plain
 
 
-def _runs_in(pool, parts: int):
-    """A map(fn, items) that runs fn over `parts` runs of the items, each
-    a task for a thread of `pool`: a task an item would cost more than a
-    small member's walk, and more runs than threads let the threads on
-    free cores take the runs of one that another process holds up."""
-    def run(fn, items):
-        items = list(items)
-        out = [None] * len(items)
-        n = min(parts, len(items))
-        for k, part in enumerate(pool.map(lambda p: [fn(x) for x in p],
-                                           [items[k::n] for k in range(n)])):
-            out[k::n] = part
-        return out
-    return run
-
-
 def _decode(bufs, device, stage_hook) -> list[bytes]:
     """The plaintext of each (buffer, its split) pair: every member of
-    every buffer indexed in threads, then decoded in one batched call."""
+    every buffer indexed in threads (gzip_codec.THREADS), then decoded
+    and checked by gzip_codec.decode_members."""
     global members
     bodies = [d[b0:b1] for d, sp in bufs for b0, b1, _, _ in sp]
     metas = [(crc, isize) for _, sp in bufs for _, _, crc, isize in sp]
-    workers = min(len(bodies), THREADS, os.cpu_count() or 1)
+    workers = min(len(bodies), gzip_codec.THREADS, os.cpu_count() or 1)
     with ThreadPoolExecutor(workers) as pool:
-        run = _runs_in(pool, 4 * workers)
+        run = gzip_codec.runs_in(pool, 4 * workers)
         idxs = ip.index_streams(bodies, run)
         for idx, body, (_, isize) in zip(idxs, bodies, metas):
             if idx is not None:
                 _check_index(idx, body, isize)
-        items = [(b, x) for b, x in zip(bodies, idxs) if x is not None]
-        decoded = iter(ip.decompress_many_segmented(
-            items, device, stage_hook=stage_hook))
-        plains = [next(decoded) if x is not None else _host_member(b)
-                  for b, x in zip(bodies, idxs)]
-        with stage("bgzf", "crc", stage_hook):
-            crcs = run(zlib.crc32, plains)
-            for plain, crc, (want, isize) in zip(plains, crcs, metas):
-                if crc != want:
-                    raise errors.DataError("gzip CRC mismatch")
-                if len(plain) != isize:
-                    raise errors.DataError("gzip ISIZE mismatch")
-            members += len(plains)
-            out, k = [], 0
-            for _, sp in bufs:
-                out.append(b"".join(plains[k:k + len(sp)]))
-                k += len(sp)
+        ms = iter([(b, x, None if x is not None else _host_member(b), crc,
+                    isize)
+                   for b, x, (crc, isize) in zip(bodies, idxs, metas)])
+        walked = [[next(ms) for _ in sp] for _, sp in bufs]
+        out = gzip_codec.decode_members(walked, device, stage_hook, run,
+                                        "bgzf")
+    members += len(bodies)
     return out
 
 

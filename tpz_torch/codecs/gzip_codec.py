@@ -3,23 +3,32 @@
 
 Decode handles FEXTRA/FNAME/FCOMMENT/FHCRC and multi-member streams. In
 a batched decode a buffer whose first member carries BGZF's 'BC'
-subfield goes to the BGZF reader (codecs/bgzf.py). A member whose 'TZ'
-side-car passes the bounds checks takes the indexed route; any other
-member takes the segmented route (kernels/inflate_pipeline.py). The
-trailer checks after a decode are the stage "crc" (the span
-tpz_torch.gzip.crc); an encode's header, CRC-32, ISIZE and their join
-with the body are the span gzip.frame.
+subfield goes to the BGZF reader (codecs/bgzf.py). The buffers whose
+every member carries a 'TZ' side-car that passes the bounds checks share
+one batch of the indexed route. Every other buffer, of one member or of
+many (a WARC file compressed record at a time, ISO 28500 Annex D.2, is
+hundreds), takes the member walk: a gzip member has no field that gives
+its size, so each member's end is found by indexing its body with the
+host segment index, in place, and each buffer is walked in a host thread
+(one span inflate.index for the call). Then every member of every buffer
+is decoded by one batched segmented decode (kernels/inflate_pipeline.py),
+which splits into device batches only at MAX_DECODE_SPAN of output, and
+`members` counts them. The trailer checks after a decode are the stage
+"crc" (the span tpz_torch.gzip.crc); an encode's header, CRC-32, ISIZE
+and their join with the body are the span gzip.frame.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from tpz_torch import constants as C
-from tpz_torch import errors
+from tpz_torch import errors, oracle
 from tpz_torch.codecs import deflate
 from tpz_torch.kernels import inflate_pipeline as ip
 from tpz_torch.kernels.deflate_pipeline import _device
@@ -163,65 +172,115 @@ def _check_trailer(plain: bytes, crc: int, isize: int) -> None:
         raise errors.DataError("gzip ISIZE mismatch")
 
 
-def decompress_member_prefix(data: bytes, off: int = 0, *, device="cuda",
-                             stage_hook=_nohook) -> tuple[bytes, int]:
-    """Decode one member starting at `off`; returns (plaintext, offset
-    just past its trailer). stage_hook sees the decode's stages, then
-    "crc" after the trailer check."""
-    device = _device(device)
-    pos, extra = parse_header_extra(data, off)
-    idx = parse_tz_extra(extra) if extra else None
-    if idx is not None and _tz_index_ok(*idx, len(data) - pos - 8):
-        end_bits, out_lens = idx
-        consumed = (int(end_bits[-1]) + 7) // 8
-        plain = ip.decompress_indexed(data[pos:pos + consumed], end_bits,
-                                      out_lens, device, stage_hook=stage_hook)
-    else:
-        plain, consumed = deflate.decompress_prefix(
-            data[pos:], device=device, stage_hook=stage_hook)
-    tpos = pos + consumed
-    with stage("gzip", "crc", stage_hook):
-        if len(data) - tpos < 8:
-            raise errors.UnexpectedEof("gzip trailer truncated")
-        _check_trailer(plain, *struct.unpack_from("<II", data, tpos))
-    return plain, tpos + 8
+# Host threads of the member walks, the members' index and their CRCs
+# (here and in codecs/bgzf.py). On an H100's host of 8 cores that other
+# work shares, 4 threads read a bgzf.read request as fast as 8 and ~1.2x
+# as fast as 2, but their rate swung twice as far from run to run as 2
+# threads' did.
+THREADS = 2
+
+# Members that the member walk's batched path decoded.
+members = 0
 
 
-def decompress(data: bytes, *, device="cuda", stage_hook=_nohook) -> bytes:
-    out = _decompress_members_batched(data, device, stage_hook)
-    if out is not None:
+def runs_in(pool, parts: int):
+    """A map(fn, items) that runs fn over `parts` runs of the items, each
+    a task for a thread of `pool`: a task an item would cost more than a
+    small member's work, and more runs than threads let the threads on
+    free cores take the runs of one that another process holds up."""
+    def run(fn, items):
+        items = list(items)
+        out = [None] * len(items)
+        n = min(parts, len(items))
+        for k, part in enumerate(pool.map(lambda p: [fn(x) for x in p],
+                                           [items[k::n] for k in range(n)])):
+            out[k::n] = part
         return out
-    parts = []
-    off = 0
-    while off < len(data):
-        plain, off = decompress_member_prefix(data, off, device=device,
-                                              stage_hook=stage_hook)
-        parts.append(plain)
-    if not data:
+    return run
+
+
+def _walk(data: bytes) -> list:
+    """Each member of a buffer, in order: (body, index, plaintext,
+    CRC-32, ISIZE). A gzip member has no field that gives its size, so
+    its body ends where the host segment index (inflate_pipeline._index,
+    read in place from the body's offset) says it was consumed; the
+    index is kept for the decode. A body the index declines is inflated
+    on the host here, which also gives its end: its index is None and
+    its plaintext set (else None). The caller counts those declines, on
+    its own thread."""
+    n = len(data)
+    if not n:
         raise errors.UnexpectedEof("empty gzip input")
-    return b"".join(parts)
+    view = memoryview(data)
+    found, off = [], 0
+    while off < n:
+        pos, _ = parse_header_extra(data, off)
+        idx = ip._index(data, offset=pos)
+        plain = None
+        if idx is None:
+            with span("inflate.host_decline"):
+                plain, consumed = oracle.inflate(view[pos:])
+        else:
+            consumed = idx["consumed"]
+        tpos = pos + consumed
+        if n - tpos < 8:
+            raise errors.UnexpectedEof("gzip trailer truncated")
+        crc, isize = struct.unpack_from("<II", data, tpos)
+        found.append((view[pos:tpos], idx, plain, crc, isize))
+        off = tpos + 8
+    return found
 
 
-def decompress_many(datas, *, device="cuda", stage_hook=_nohook) -> list[bytes]:
-    """Batched gzip decode: the buffers whose first member is BGZF's go
-    to its reader (codecs/bgzf.py), which decodes all their members in
-    one batched call; every TZ-indexed member of the other buffers shares
-    one indexed batch; the rest decode one by one. stage_hook sees each
-    decode's stages (kernels/inflate_pipeline.py), then "crc" after its
-    trailer checks."""
-    from tpz_torch.codecs import bgzf  # bgzf imports this module
+def decode_members(walked, device, stage_hook, run,
+                   layer: str = "gzip") -> list[bytes]:
+    """The plaintext of each buffer from its members, as _walk gives
+    them: every member with an index decoded by one
+    `inflate_pipeline.decompress_many_segmented` call, whose device
+    batches split only at MAX_DECODE_SPAN of output; then every member's
+    CRC-32 and ISIZE, `run` (a map) taking the CRCs (stage "crc", span
+    <layer>.crc), and each buffer's members joined."""
+    ms = [m for w in walked for m in w]
+    decoded = iter(ip.decompress_many_segmented(
+        [(m[0], m[1]) for m in ms if m[1] is not None], device,
+        stage_hook=stage_hook))
+    plains = [next(decoded) if m[1] is not None else m[2] for m in ms]
+    with stage(layer, "crc", stage_hook):
+        crcs = run(zlib.crc32, plains)
+        for plain, crc, m in zip(plains, crcs, ms):
+            if crc != m[3]:
+                raise errors.DataError("gzip CRC mismatch")
+            if len(plain) & 0xFFFFFFFF != m[4]:
+                raise errors.DataError("gzip ISIZE mismatch")
+        out, k = [], 0
+        for w in walked:
+            out.append(b"".join(plains[k:k + len(w)]))
+            k += len(w)
+    return out
 
-    device = _device(device)
-    datas = list(datas)
+
+def _decode_walked(datas, device, stage_hook) -> list[bytes]:
+    """Buffers of stock members: every buffer walked member by member in
+    host threads, a buffer a thread (one span inflate.index), then all
+    their members in decode_members."""
+    global members
+    workers = min(len(datas), THREADS, os.cpu_count() or 1)
+    oracle.lib()  # loaded once, before any thread calls it
+    with ThreadPoolExecutor(workers) as pool:
+        with span("inflate.index"):
+            walked = list(pool.map(_walk, datas))
+        ip.host_declines += sum(m[1] is None for w in walked for m in w)
+        out = decode_members(walked, device, stage_hook,
+                             runs_in(pool, 4 * workers))
+    members += sum(map(len, walked))
+    return out
+
+
+def _decode(datas, device, stage_hook) -> list[bytes]:
+    """Buffers whose every member carries a valid TZ index share one
+    indexed batch, then their trailer checks; every other buffer takes
+    the member walk (_decode_walked)."""
     results = [None] * len(datas)
-    marked = [i for i, d in enumerate(datas) if bgzf.is_bgzf(d)]
-    if marked:
-        for i, out in zip(marked, bgzf.decompress_many(
-                [datas[i] for i in marked], device=device,
-                stage_hook=stage_hook)):
-            results[i] = out
-    scans = [_scan_members_indexed(d) if results[i] is None else None
-             for i, d in enumerate(datas)]
+    scans = [_scan_members_indexed(d) for d in datas]
     items = [it for s in scans if s is not None for it in s[0]]
     if items:
         plains = ip.decompress_many_indexed(items, device,
@@ -237,9 +296,43 @@ def decompress_many(datas, *, device="cuda", stage_hook=_nohook) -> list[bytes]:
                     _check_trailer(plain, crc, isize)
                 results[i] = b"".join(part)
                 pos += len(its)
-    for i, d in enumerate(datas):
-        if results[i] is None:
-            results[i] = decompress(d, device=device, stage_hook=stage_hook)
+    rest = [i for i, s in enumerate(scans) if s is None]
+    if rest:
+        for i, out in zip(rest, _decode_walked([datas[i] for i in rest],
+                                               device, stage_hook)):
+            results[i] = out
+    return results
+
+
+def decompress(data: bytes, *, device="cuda", stage_hook=_nohook) -> bytes:
+    """One buffer of one or more members, as decompress_many decodes a
+    buffer that is not BGZF's."""
+    return _decode([data], _device(device), stage_hook)[0]
+
+
+def decompress_many(datas, *, device="cuda", stage_hook=_nohook) -> list[bytes]:
+    """Batched gzip decode: the buffers whose first member is BGZF's go
+    to its reader (codecs/bgzf.py); every TZ-indexed member of the
+    buffers whose members all carry the index shares one indexed batch;
+    every member of every other buffer is found by the member walk and
+    decoded in one batched segmented decode. stage_hook sees each
+    decode's stages (kernels/inflate_pipeline.py), then "crc" after its
+    trailer checks."""
+    from tpz_torch.codecs import bgzf  # bgzf imports this module
+
+    device = _device(device)
+    datas = list(datas)
+    results = [None] * len(datas)
+    marked = [i for i, d in enumerate(datas) if bgzf.is_bgzf(d)]
+    if marked:
+        for i, out in zip(marked, bgzf.decompress_many(
+                [datas[i] for i in marked], device=device,
+                stage_hook=stage_hook)):
+            results[i] = out
+    rest = [i for i, r in enumerate(results) if r is None]
+    for i, out in zip(rest, _decode([datas[i] for i in rest], device,
+                                    stage_hook)):
+        results[i] = out
     return results
 
 
@@ -270,17 +363,3 @@ def _scan_members_indexed(data: bytes):
         return None
     return items, metas
 
-
-def _decompress_members_batched(data: bytes, device,
-                                stage_hook=_nohook) -> bytes | None:
-    """One buffer's members in one indexed batch when every member
-    carries the TZ index; None -> the caller walks members one by one."""
-    s = _scan_members_indexed(data)
-    if s is None:
-        return None
-    items, metas = s
-    plains = ip.decompress_many_indexed(items, device, stage_hook=stage_hook)
-    with stage("gzip", "crc", stage_hook):
-        for plain, (crc, isize) in zip(plains, metas):
-            _check_trailer(plain, crc, isize)
-    return b"".join(plains)

@@ -729,9 +729,12 @@ def index_stream(stream: bytes, seg_out: int = BLOCK):
         return _index(stream, seg_out)
 
 
-def _index(stream: bytes, seg_out: int = BLOCK):
+def _index(stream: bytes, seg_out: int = BLOCK, offset: int = 0):
+    """index_stream without its span, of the stream from byte `offset`
+    of `stream` (read in place) to at most its end."""
     idx = oracle.inflate_index(stream, seg_out=seg_out,
-                               max_span_bytes=SLICE_BYTES - 1024)
+                               max_span_bytes=SLICE_BYTES - 1024,
+                               offset=offset)
     if idx is None or int(np.sum(idx["out_lens"])) > MAX_DECODE_SPAN_WIDE:
         return None
     return idx
@@ -761,10 +764,12 @@ def _join(items):
     if len(items) == 1:
         return items[0]
     bits = 8 * np.cumsum([0] + [len(s) for s, _ in items[:-1]])
-    idx = {k: np.concatenate([x[k] + b for (_, x), b in zip(items, bits)])
-           for k in ("hdr_bits", "seg_bits", "end_bits")}
-    idx.update({k: np.concatenate([x[k] for _, x in items])
-                for k in ("out_lens", "carry_len", "carry_dist")})
+    shift = np.repeat(bits, [len(x["out_lens"]) for _, x in items])
+    idx = {k: np.concatenate([x[k] for _, x in items])
+           for k in ("hdr_bits", "seg_bits", "end_bits", "out_lens",
+                     "carry_len", "carry_dist")}
+    for k in ("hdr_bits", "seg_bits", "end_bits"):
+        idx[k] += shift
     return b"".join(s for s, _ in items), idx
 
 

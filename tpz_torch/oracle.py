@@ -364,14 +364,18 @@ def inflate_scan_segments(stream, hdr_bits: np.ndarray, seg_bits: np.ndarray,
 
 
 def inflate_index(stream, seg_out: int = 1 << 16,
-                  max_span_bytes: int = (1 << 16) + 6144):
+                  max_span_bytes: int = (1 << 16) + 6144, offset: int = 0):
     """Token-aligned segment index over any raw DEFLATE stream (cpp
-    InflateIndex): one host symbol walk that writes no output. Returns
-    per-segment arrays (hdr_bits, seg_bits, end_bits, out_lens, carry_len,
-    carry_dist) and `consumed` bytes, or None when the stream does not fit
-    the device path."""
-    data = bytes(stream)
-    max_segs = max(16, 2 * (len(data) // 1024) + 64 * 1024)
+    InflateIndex): one host symbol walk that writes no output. The stream
+    starts at byte `offset` of the bytes-like `stream` and may run to its
+    end; it is read in place, not copied. Returns per-segment arrays
+    (hdr_bits, seg_bits, end_bits, out_lens, carry_len, carry_dist; bits
+    from `offset`) and `consumed` bytes, or None when the stream does not
+    fit the device path."""
+    a = np.frombuffer(stream, np.uint8)
+    n = max(0, a.size - offset)
+    addr = a.ctypes.data + min(offset, a.size)
+    max_segs = max(16, 2 * (n // 1024) + 64 * 1024)
     # Rows hdr_bits, seg_bits, end_bits, out_lens and, in row 4's first
     # entry, the segment count; then carry_len, carry_dist.
     w64 = np.empty((5, max_segs), np.int64)
@@ -380,7 +384,7 @@ def inflate_index(stream, seg_out: int = 1 << 16,
     r64, r32 = 8 * max_segs, 4 * max_segs
     consumed = ctypes.c_size_t(0)
     st = lib().tpz_inflate_index(
-        data, len(data), seg_out, max_segs, max_span_bytes, a64, a64 + r64,
+        addr, n, seg_out, max_segs, max_span_bytes, a64, a64 + r64,
         a64 + 2 * r64, a64 + 3 * r64, a32, a32 + r32, a64 + 4 * r64,
         ctypes.byref(consumed))
     if st != 0:
